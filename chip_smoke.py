@@ -1,0 +1,493 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. device: the card's name and power limit, torch, and the kernel build
+   (``nvcc`` from the sources in this checkout);
+2. each kernel against its plain PyTorch version on the card at the
+   serving path's shapes (B 1, Hq 32, Hkv 8, D 128; bf16 and f32), with
+   kernel, plain and library (SDPA, a yardstick the port never calls)
+   times and the card's bound;
+3. tiny qwen3-8b, olmo-1b and deepseek-coder-33b in f32 on the card against the same weights
+   on the CPU;
+4. the main path: the PREMA ``ServingEngine`` serving 8 requests on
+   full-width qwen3-8b in bf16, checked against isolated runs, with the
+   kernels' launch counts checked against the executor's step counts.
+
+Then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
+CUDA device, or without the repository beside it, it exits non-zero and
+prints no result.
+"""
+from __future__ import annotations
+
+import os
+
+# cuBLAS determinism needs this before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12                     # H100 SXM data sheet
+PEAK_OPS = {torch.bfloat16: 989e12,           # tensor cores, dense
+            torch.float32: 67e12}             # f32 outside the tensor cores
+# kernel vs plain on the card, as (atol, rtol).  The reference is the plain
+# version run in f32 on the same values (bf16 inputs upcast exactly).  Both
+# sum in f32, in different orders.  A bf16 kernel rounds its f32 result once,
+# so it must lie within half a bf16 ulp (at most 2**-8 relative) of the f32
+# reference, plus f32 summation error: tighter than one ulp of the plain
+# version's bf16 output, and missed by truncation or a dropped key tile.
+TOL = {torch.float32: (3e-4, 3e-4), torch.bfloat16: (1e-5, 2.0 ** -8)}
+TINY_TOL = 1e-4
+B, HQ, HKV, D = 1, 32, 8, 128
+L2_BYTES = 50 * 2**20
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# timing
+# --------------------------------------------------------------------------
+def time_ms(fn, sets, reps: int = 20) -> float:
+    """Mean ms of ``fn(*inputs)`` by CUDA events, rotating over ``sets``
+    so each call finds its inputs outside the L2 cache."""
+    for s in sets[:2]:
+        fn(*s)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(*sets[i % len(sets)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def n_copies(set_bytes: int) -> int:
+    return int(min(16, max(2, -(-3 * L2_BYTES // set_bytes))))
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def within(a: torch.Tensor, b: torch.Tensor, tol: tuple) -> bool:
+    atol, rtol = tol
+    a, b = a.float(), b.float()
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def as_f32(*ts):
+    return tuple(t.float() for t in ts)
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------
+def _model_layout(gen, b, t, h, d, dtype):
+    """A (B,H,T,D) view of a (B,T,H,D) tensor, as the model hands it over."""
+    x = torch.randn((b, t, h, d), generator=gen, device="cuda", dtype=dtype)
+    return x.transpose(1, 2)
+
+
+def flash_case(gen, dtype, s, causal):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    F = torch.nn.functional
+    q = _model_layout(gen, B, s, HQ, D, dtype)
+    k = _model_layout(gen, B, s, HKV, D, dtype)
+    v = _model_layout(gen, B, s, HKV, D, dtype)
+    out = flash_attention(q, k, v, causal)
+    ref = flash_attention_plain(*as_f32(q, k, v), causal)
+    torch.cuda.synchronize()
+    err, tol = max_err(out, ref), TOL[dtype]
+    sets = [(q, k, v)] + [tuple(_model_layout(gen, B, s, h, D, dtype)
+                                for h in (HQ, HKV, HKV))
+                          for _ in range(n_copies(nbytes(q, k, v)) - 1)]
+    pairs = s * (s + 1) // 2 if causal else s * s
+    ops = 4 * B * HQ * D * pairs
+    moved = nbytes(q, k, v, out)
+    t_ops, t_bytes = ops / PEAK_OPS[dtype], moved / HBM_BYTES_PER_S
+    row = dict(
+        kernel="flash_attention", dtype=str(dtype).split(".")[1], S=s, T=s,
+        causal=causal, max_abs_err=err, atol=tol[0], rtol=tol[1],
+        ok=within(out, ref, tol),
+        ms=time_ms(lambda a, b_, c: flash_attention(a, b_, c, causal), sets),
+        plain_ms=time_ms(lambda a, b_, c: flash_attention_plain(a, b_, c,
+                                                                causal), sets),
+        library_ms=time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+            a, b_, c, is_causal=causal, enable_gqa=True), sets),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return row
+
+
+def decode_case(gen, dtype, t, pos):
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    F = torch.nn.functional
+
+    def inputs():
+        q = torch.randn((B, HQ, D), generator=gen, device="cuda", dtype=dtype)
+        return (q, _model_layout(gen, B, t, HKV, D, dtype),
+                _model_layout(gen, B, t, HKV, D, dtype))
+    q, k, v = inputs()
+    out = decode_attention(q, k, v, pos)
+    ref = decode_attention_plain(*as_f32(q, k, v), pos)
+    torch.cuda.synchronize()
+    err, tol = max_err(out, ref), TOL[dtype]
+    live = 2 * B * HKV * (pos + 1) * D * k.element_size()
+    sets = [(q, k, v)] + [inputs() for _ in range(n_copies(live) - 1)]
+    ops = 4 * B * HQ * D * (pos + 1)
+    moved = nbytes(q, out) + live
+    t_ops, t_bytes = ops / PEAK_OPS[dtype], moved / HBM_BYTES_PER_S
+
+    def library(q_, k_, v_):
+        return F.scaled_dot_product_attention(
+            q_[:, :, None], k_[:, :, :pos + 1], v_[:, :, :pos + 1],
+            enable_gqa=True)
+    return dict(
+        kernel="decode_attention", dtype=str(dtype).split(".")[1], T=t,
+        pos=pos, max_abs_err=err, atol=tol[0], rtol=tol[1],
+        ok=within(out, ref, tol),
+        ms=time_ms(lambda a, b_, c: decode_attention(a, b_, c, pos), sets),
+        plain_ms=time_ms(lambda a, b_, c: decode_attention_plain(a, b_, c,
+                                                                 pos), sets),
+        library_ms=time_ms(library, sets),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernels():
+    # the plain versions' f32 products must not run in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for s in (37, 1024, 2048):
+            for causal in (True, False):
+                rows.append(flash_case(gen, dtype, s, causal))
+                emit("kernel_check", **rows[-1])
+        for t in (256, 2560):
+            for pos in sorted({0, 255, t * 4 // 5, t - 1}):
+                rows.append(decode_case(gen, dtype, t, pos))
+                emit("kernel_check", **rows[-1])
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"kernels disagree with their plain versions: {bad}")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 3: tiny models, card against CPU
+# --------------------------------------------------------------------------
+def phase_tiny():
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.params import params_from_numpy
+    from repro_torch.serving import PreemptibleExecutor
+
+    out = {}
+    for name in ("qwen3-8b", "olmo-1b", "deepseek-coder-33b"):
+        model = get_model(name, tiny=True)
+        cpu = model.init_params(generator=torch.Generator().manual_seed(1),
+                                dtype=torch.float32, device="cpu")
+        gpu = params_from_numpy(tree_map(lambda x: x.numpy(), cpu), "cuda")
+        prompt = np.random.default_rng(2).integers(
+            1, model.cfg.vocab_size, (1, 12)).astype(np.int32)
+        ex_c = PreemptibleExecutor(model, cpu)
+        ex_g = PreemptibleExecutor(model, gpu)
+        sc, sg = ex_c.start({"tokens": prompt}), ex_g.start({"tokens": prompt})
+        while sc.phase == "prefill":
+            sc, sg = ex_c.step_prefill(sc), ex_g.step_prefill(sg)
+        err, compared = 0.0, 0
+        for step in range(8):
+            lc, lg = sc.last_logits.float(), sg.last_logits.float().cpu()
+            err = max(err, max_err(lc, lg))
+            top2 = torch.topk(lc[0, -1], 2).values
+            if float(top2[0] - top2[1]) > TINY_TOL:
+                compared += 1
+                if not np.array_equal(sc.tokens_out[-1], sg.tokens_out[-1]):
+                    raise SystemExit(f"{name}: token differs at step {step}")
+            # teacher forcing: both continue from the CPU's token
+            sg.tokens_out[-1] = sc.tokens_out[-1].copy()
+            sc, sg = ex_c.step_decode(sc), ex_g.step_decode(sg)
+        if err > TINY_TOL:
+            raise SystemExit(f"{name}: card vs CPU logits differ by {err}")
+        out[name] = {"max_abs_err": err, "tol": TINY_TOL,
+                     "tokens_compared": compared}
+    emit("tiny_card_vs_cpu", dtype="float32", **out)
+
+
+# --------------------------------------------------------------------------
+# phase 4: the main path at full width
+# --------------------------------------------------------------------------
+def make_requests(cfg, hw, n: int, seed: int):
+    from repro_torch.core import arch_ops
+    from repro_torch.core.predictor import network_time
+    from repro_torch.serving import InferenceRequest
+    rng = np.random.default_rng(seed)
+    # arrivals inside one 2048-token prefill's predicted time, so PREMA
+    # has to preempt
+    window = 0.5 * network_time(arch_ops.prefill_ops(cfg, 2048, 1), hw)
+    reqs = []
+    for i in range(n):
+        plen = int(rng.integers(64, 2049))
+        reqs.append(InferenceRequest(
+            rid=i, arch=cfg.name,
+            prompt=rng.integers(1, cfg.vocab_size, (1, plen)).astype(np.int32),
+            max_new_tokens=32, priority=int(rng.choice([1, 3, 9])),
+            arrival=float(rng.uniform(0, window)),
+            true_decode_len=int(rng.integers(8, 33))))
+    return reqs, window
+
+
+def _count_steps(executor, counts):
+    """Count the executor's steps (instance attributes shadow the methods,
+    so ``step`` and ``run_uninterrupted`` go through them)."""
+    for key, name in (("prefill", "step_prefill"), ("decode", "step_decode")):
+        fn = getattr(executor, name)
+
+        def counted(st, fn=fn, key=key):
+            counts[key] += 1
+            return fn(st)
+        setattr(executor, name, counted)
+
+
+def _counters():
+    """The wrapper modules whose ``launches`` count kernel launches."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fl
+    return {"flash_attention": fl, "decode_attention": dec}
+
+
+def _launches():
+    return {name: mod.launches for name, mod in _counters().items()}
+
+
+def _reset_launches():
+    for mod in _counters().values():
+        mod.launches = 0
+
+
+def _check_launches(cfg, counts, where):
+    attn_slots = sum(m == "attn" for m, _ in cfg.block_pattern)
+    expect = {"flash_attention": counts["prefill"] * attn_slots,
+              "decode_attention": counts["decode"] * attn_slots
+              * cfg.n_periods}
+    got = _launches()
+    if got != expect or min(got.values()) == 0:
+        raise SystemExit(f"{where}: kernel launches {got}, expected {expect} "
+                         f"from step counts {counts}")
+    return got
+
+
+def serve_and_check(model, params, reqs, sync):
+    """Serve ``reqs`` through the PREMA engine, then rerun each request in
+    isolation; checks completion, preemption, tokens and launch counts."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    cfg = model.cfg
+    engine = ServingEngine({cfg.name: (model, params)},
+                           cfg=EngineConfig(policy="prema",
+                                            mechanism="dynamic"))
+    executor = engine._executors[cfg.name]
+    counts = {"prefill": 0, "decode": 0}
+    _count_steps(executor, counts)
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    sync()
+    wall = time.perf_counter() - t0
+    engine_launches = _check_launches(cfg, counts, "engine run")
+    engine_steps = dict(counts)
+    if len(results) != len(reqs):
+        raise SystemExit(f"{len(results)} of {len(reqs)} requests completed")
+    if sum(r.n_preemptions + r.n_kills for r in results) < 1:
+        raise SystemExit("no preemption took place")
+
+    counts.update(prefill=0, decode=0)
+    _reset_launches()
+    t0 = time.perf_counter()
+    for r in results:
+        req = next(q for q in reqs if q.rid == r.rid)
+        n = r.tokens.shape[1]
+        iso = executor.run_uninterrupted({"tokens": req.prompt},
+                                         max_new_tokens=n)
+        if n < 1 or not np.array_equal(np.stack(iso.tokens_out[:n], 1),
+                                       r.tokens):
+            raise SystemExit(f"request {r.rid}: tokens differ from its "
+                             "isolated run")
+        if not bool(torch.isfinite(iso.last_logits.float()).all()):
+            raise SystemExit(f"request {r.rid}: non-finite logits")
+    sync()
+    iso_wall = time.perf_counter() - t0
+    iso_launches = _check_launches(cfg, counts, "isolated runs")
+    return dict(
+        engine=engine, executor=executor, wall_s=wall, isolated_wall_s=iso_wall,
+        generated_tokens=sum(int(r.tokens.shape[1]) for r in results),
+        checks=dict(requests=len(results),
+                    preemptions=sum(r.n_preemptions for r in results),
+                    kills=sum(r.n_kills for r in results),
+                    tokens_equal_isolated=True, engine_steps=engine_steps,
+                    engine_launches=engine_launches,
+                    isolated_steps=dict(counts),
+                    isolated_launches=iso_launches))
+
+
+def phase_serve(card: str, n_requests: int = 8, seed: int = 0):
+    from repro_torch.hw import H100
+    from repro_torch.models import get_model
+
+    torch.use_deterministic_algorithms(True)
+    # every kernel writes all of its outputs: no need to fill torch.empty
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    model = get_model("qwen3-8b")
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    params = model.init_params(
+        generator=torch.Generator(device="cuda").manual_seed(seed),
+        dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs, window = make_requests(cfg, H100, n_requests, seed)
+    torch.cuda.reset_peak_memory_stats()
+    run = serve_and_check(model, params, reqs, torch.cuda.synchronize)
+    emit("serve", model=cfg.name, dtype="bfloat16", n_layers=cfg.n_layers,
+         d_model=cfg.d_model,
+         prompt_lens=[int(q.prompt.shape[1]) for q in reqs],
+         arrival_window_s=window, param_init_s=init_s,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **run["checks"])
+    emit("serve_virtual_clock", note="engine summary(): virtual clock of "
+         "the H100 hardware model, not measured time",
+         **{k: float(v) for k, v in run["engine"].summary().items()})
+    emit("serve_wall", card=card, wall_s=run["wall_s"],
+         generated_tokens=run["generated_tokens"],
+         tokens_per_s=run["generated_tokens"] / run["wall_s"],
+         isolated_runs_wall_s=run["isolated_wall_s"])
+    longest = max(reqs, key=lambda q: q.prompt.shape[1])
+    emit("serve_profile", card=card, prompt_len=int(longest.prompt.shape[1]),
+         **profile_request(run["executor"], longest.prompt,
+                           longest.max_new_tokens))
+    return run["checks"]["engine_launches"]
+
+
+def _family(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd_kernel" in name:
+        return "flash_attention"
+    if "decode_split_kernel" in name or "decode_combine_kernel" in name:
+        return "decode_attention"
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+        return "gemm"
+    return "other"
+
+
+def _device_breakdown(prof, wall_s: float) -> dict:
+    fams = {"flash_attention": 0.0, "decode_attention": 0.0, "gemm": 0.0,
+            "other": 0.0}
+    kernels = []
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        if us > 0:
+            fams[_family(evt.key)] += us / 1e3
+            kernels.append((us / 1e3, evt.count, evt.key[:90]))
+    device_ms = sum(fams.values())
+    return dict(wall_ms=wall_s * 1e3, device_ms=device_ms,
+                idle_share=1.0 - device_ms / (wall_s * 1e3),
+                family_ms=fams,
+                top=[dict(ms=ms, count=n, name=k)
+                     for ms, n, k in sorted(kernels, reverse=True)[:6]])
+
+
+def profile_request(executor, prompt, max_new_tokens: int) -> dict:
+    """Device time by kernel family (``torch.profiler``, CUDA activity
+    only) for the prefill and then the decode of one isolated request."""
+    from torch.profiler import ProfilerActivity, profile
+    st = executor.start({"tokens": prompt})
+    out = {}
+    for phase in ("prefill", "decode"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            steps = 0
+            while st.phase == phase and len(st.tokens_out) < max_new_tokens:
+                st = executor.step(st)
+                steps += 1
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[phase] = dict(steps=steps, **_device_breakdown(prof, wall))
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import cuda_lib
+
+    card = card_line()
+    t0 = time.perf_counter()
+    cuda_lib.library()
+    emit("device", card=card, torch=torch.__version__,
+         cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
+    rows = phase_kernels()
+    phase_tiny()
+    launches = phase_serve(card)
+
+    sources = {"flash_attention": ("flash_attention.cu",
+                                   "src/repro/kernels/flash_attention/kernel.py:90"),
+               "decode_attention": ("decode_attention.cu",
+                                    "src/repro/kernels/decode_attention/kernel.py:91")}
+    headline = {"flash_attention": dict(dtype="bfloat16", S=2048, causal=True),
+                "decode_attention": dict(dtype="bfloat16", T=2560, pos=2048)}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        head = next(r for r in mine
+                    if all(r[k] == v for k, v in headline[name].items()))
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], at=headline[name]))
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

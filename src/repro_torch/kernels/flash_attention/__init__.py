@@ -1,0 +1,2 @@
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention.ref import flash_attention_plain  # noqa: F401

@@ -1,0 +1,146 @@
+"""The attention wrappers of the port (their plain versions, on the CPU)
+against the JAX Pallas kernels run in interpret mode, on the same inputs
+(made with numpy): 3e-4 in f32, 3e-2 in bf16."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import decode_attention as jax_decode
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+
+torch.set_num_threads(2)
+TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+
+# the cases of tests/test_kernels_attention.py
+CASES = [  # b, hq, hkv, s, t, d, causal
+    (2, 4, 2, 128, 128, 64, True),
+    (1, 8, 8, 256, 256, 32, True),
+    (2, 4, 1, 100, 100, 64, True),      # ragged (padding path)
+    (1, 4, 2, 64, 192, 64, False),      # cross-attention shape
+    (1, 2, 2, 128, 128, 128, True),
+]
+DECODE_CASES = [  # b, hq, hkv, t, d, pos
+    (2, 8, 2, 512, 64, 300),
+    (1, 4, 4, 1024, 128, 1023),
+    (2, 16, 2, 700, 64, 0),
+    (1, 32, 4, 4096, 128, 2048),
+]
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    return jnp.asarray(a, dtype), torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _close(t_out, j_out, tol):
+    np.testing.assert_allclose(t_out.float().numpy(),
+                               np.asarray(j_out, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_vs_pallas(case, dtype):
+    b, hq, hkv, s, t, d, causal = case
+    rng = np.random.default_rng(0)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.standard_normal(shape).astype(np.float32), dtype)
+        for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+    ref = jax_flash(qj, kj, vj, causal=causal, bq=64, bt=64, interpret=True)
+    _close(flash_attention(qt, kt, vt, causal=causal), ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_vs_pallas(case, dtype):
+    b, hq, hkv, t, d, pos = case
+    rng = np.random.default_rng(1)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.standard_normal(shape).astype(np.float32), dtype)
+        for shape in ((b, hq, d), (b, hkv, t, d), (b, hkv, t, d)))
+    ref = jax_decode(qj, kj, vj, jnp.int32(pos), bt=256, interpret=True)
+    _close(decode_attention(qt, kt, vt, pos), ref, TOL[dtype])
+
+
+def test_flash_reads_strided_model_layout():
+    """The model hands (B,S,H,D) tensors over as transposed views."""
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((1, 33, 4, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 33, 2, 16)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((1, 33, 2, 16)).astype(np.float32))
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2))
+    ref = flash_attention(q.transpose(1, 2).contiguous(),
+                          k.transpose(1, 2).contiguous(),
+                          v.transpose(1, 2).contiguous())
+    assert torch.equal(out, ref)
+
+
+def test_decode_pos_zero_attends_only_first():
+    rng = np.random.default_rng(3)
+    b, hq, hkv, t, d = 1, 4, 2, 256, 32
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, hkv, t, d)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, hkv, t, d)).astype(np.float32))
+    out = decode_attention(q, k, v, 0)
+    expect = torch.repeat_interleave(v[:, :, 0], hq // hkv, dim=1)
+    torch.testing.assert_close(out, expect, rtol=1e-5, atol=1e-5)
+
+
+def _inputs(hq=4, hkv=2, d=16, dtype=torch.float32, t=8):
+    q = torch.zeros((1, hq, 5, d), dtype=dtype)
+    kv = torch.zeros((1, hkv, t, d), dtype=dtype)
+    return q, kv, kv.clone()
+
+
+@pytest.mark.parametrize("bad", [
+    dict(d=48), dict(d=256), dict(dtype=torch.float16),
+    dict(dtype=torch.float64), dict(hq=6, hkv=4)])
+def test_wrappers_reject_bad_inputs(bad):
+    q, k, v = _inputs(**bad)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError):
+        decode_attention(q[:, :, 0], k, v, 3)
+
+
+def test_decode_rejects_pos_outside_cache():
+    q, k, v = _inputs()
+    for pos in (-1, 8):
+        with pytest.raises(ValueError):
+            decode_attention(q[:, :, 0], k, v, pos)
+
+
+# kernel against the plain version run in f32 on the same values, as
+# (atol, rtol).  A bf16 kernel rounds its f32 result once: within half a
+# bf16 ulp (2**-8 relative) plus f32 summation error.
+CARD_TOL = {torch.float32: (3e-4, 3e-4), torch.bfloat16: (1e-5, 2.0 ** -8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    atol, rtol = CARD_TOL[dtype]
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    def check(out, ref):
+        torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
+    for s, causal in ((37, True), (100, False), (256, True)):
+        q, k, v = (rand(1, s, h, 128).transpose(1, 2) for h in (32, 8, 8))
+        check(flash_attention(q, k, v, causal),
+              flash_attention_plain(q.float(), k.float(), v.float(), causal))
+    k, v = (rand(1, 300, 8, 128).transpose(1, 2) for _ in range(2))
+    q = rand(1, 32, 128)
+    for pos in (0, 63, 64, 299):
+        check(decode_attention(q, k, v, pos),
+              decode_attention_plain(q.float(), k.float(), v.float(), pos))
