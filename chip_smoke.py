@@ -7,15 +7,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit, torch, and the kernel build
    (``nvcc`` from the sources in this checkout);
-2. each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (B 1, Hq 32, Hkv 8, D 128; bf16 and f32), with
-   kernel, plain and library (SDPA, a yardstick the port never calls)
+2. each attention kernel against its plain PyTorch version on the card
+   at the serving path's shapes (B 1, Hq 32, Hkv 8, D 128; bf16 and f32),
+   with kernel, plain and library (SDPA, a yardstick the port never calls)
    times and the card's bound;
-3. tiny qwen3-8b, olmo-1b and deepseek-coder-33b in f32 on the card against the same weights
-   on the CPU;
-4. the main path: the PREMA ``ServingEngine`` serving 8 requests on
+3. the preemptible GEMM against its plain version run in float64, at the
+   reference test's shapes and qwen3-8b's full-width down projection, over
+   the whole K range and a middle range seeded from a non-zero
+   accumulator, f32 and bf16; timed at full width beside cuBLAS;
+4. tiny qwen3-8b, olmo-1b and deepseek-coder-33b in f32 on the card
+   against the same weights on the CPU;
+5. the serving path: the PREMA ``ServingEngine`` serving 8 requests on
    full-width qwen3-8b in bf16, checked against isolated runs, with the
-   kernels' launch counts checked against the executor's step counts.
+   kernels' launch counts checked against the executor's step counts;
+6. the GEMM path: the preemptible-kernel demo at full width
+   (``repro_torch.examples.preemptible_kernel_demo --full``), one
+   uninterrupted launch and 48 preempted quanta that must agree bit for
+   bit, with its launch count checked.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -48,6 +56,15 @@ PEAK_OPS = {torch.bfloat16: 989e12,           # tensor cores, dense
 # reference, plus f32 summation error: tighter than one ulp of the plain
 # version's bf16 output, and missed by truncation or a dropped key tile.
 TOL = {torch.float32: (3e-4, 3e-4), torch.bfloat16: (1e-5, 2.0 ** -8)}
+# The preemptible GEMM is held elementwise to ``f32_sum_tolerance``
+# (kernels/preemptible_matmul/ref.py) against its plain version run in
+# float64: 8 * sqrt(n + 1) * 2**-24 * (|acc| + |x @ y| + sqrt(x**2 @ y**2))
+# over the n reduction rows of the range, the growth of f32 rounding error
+# over n additions.  Dropping a K tile or the last ragged K column, ignoring
+# acc_in, or TF32 products each exceed it (tests/test_torch_matmul.py
+# simulates each on the CPU).
+GEMM_SHAPES = [(128, 128, 128), (256, 384, 512), (100, 200, 300),
+               (64, 1000, 72), (1, 129, 1), (257, 64, 130)]
 TINY_TOL = 1e-4
 B, HQ, HKV, D = 1, 32, 8, 128
 L2_BYTES = 50 * 2**20
@@ -106,7 +123,7 @@ def as_f32(*ts):
 
 
 # --------------------------------------------------------------------------
-# phase 2: kernels against their plain versions
+# phase 2: the attention kernels against their plain versions
 # --------------------------------------------------------------------------
 def _model_layout(gen, b, t, h, d, dtype):
     """A (B,H,T,D) view of a (B,T,H,D) tensor, as the model hands it over."""
@@ -183,9 +200,6 @@ def decode_case(gen, dtype, t, pos):
 
 
 def phase_kernels():
-    # the plain versions' f32 products must not run in TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -204,7 +218,80 @@ def phase_kernels():
 
 
 # --------------------------------------------------------------------------
-# phase 3: tiny models, card against CPU
+# phase 3: the preemptible GEMM against its plain version
+# --------------------------------------------------------------------------
+def gemm_case(gen, dtype, shape, timed):
+    from repro_torch.kernels.preemptible_matmul import (f32_sum_tolerance,
+                                                        matmul_partial_plain,
+                                                        matmul_resumable,
+                                                        start)
+    m, k, n = shape
+
+    def inputs():
+        return (torch.randn((m, k), generator=gen, device="cuda", dtype=dtype),
+                torch.randn((k, n), generator=gen, device="cuda", dtype=dtype))
+    x, y = inputs()
+    ck = start(x, y)
+    nk, rows = ck.n_ktiles, []
+    for name, ks, ke in (("full", 0, nk),
+                         ("middle", nk // 3, nk // 3 + max(1, nk // 3))):
+        acc = ck.acc if name == "full" else torch.randn(
+            ck.acc.shape, generator=gen, device="cuda")
+        out = matmul_resumable(x, y, acc, ks, ke)
+        exact = matmul_partial_plain(x, y, acc.double(), ks, ke)
+        tol = f32_sum_tolerance(x, y, acc, ks, ke)
+        torch.cuda.synchronize()
+        diff = (out.double() - exact).abs()
+        rows.append(dict(
+            kernel="preemptible_matmul", dtype=str(dtype).split(".")[1],
+            M=m, K=k, N=n, k_tiles=[ks, ke], max_abs_err=float(diff.max()),
+            err_over_tol=float((diff / tol.clamp_min(1e-300)).max()),
+            ok=bool((diff <= tol).all())))
+    if not timed:
+        return rows
+    acc = ck.acc
+    sets = [(x, y, acc)] + [inputs() + (torch.zeros_like(acc),) for _ in
+                            range(n_copies(nbytes(x, y, acc)) - 1)]
+    if dtype == torch.bfloat16:
+        lib_call = "torch.mm(x, y, out_dtype=torch.float32)"
+        library = (lambda a, b, c: torch.mm(a, b, out_dtype=torch.float32))
+    else:
+        lib_call = "torch.addmm(acc, x, y)"
+        library = (lambda a, b, c: torch.addmm(c, a, b))
+    t_ops = 2 * m * n * k / PEAK_OPS[dtype]
+    t_bytes = nbytes(x, y, acc, acc) / HBM_BYTES_PER_S
+    rows[0].update(
+        ms=time_ms(lambda a, b, c: matmul_resumable(a, b, c, 0, nk), sets),
+        plain_ms=time_ms(lambda a, b, c: matmul_partial_plain(a, b, c, 0, nk),
+                         sets),
+        library_ms=time_ms(library, sets), library_call=lib_call,
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        # ms of one launch over the first q K tiles: the fixed cost of a
+        # launch (a preemption point) against the cost of a tile
+        ms_by_k_tiles={q: time_ms(lambda a, b, c, q=q: matmul_resumable(
+            a, b, c, 0, q), sets) for q in (1, 2, 4, 8, 24)})
+    return rows
+
+
+def phase_gemm():
+    from repro_torch.examples.preemptible_kernel_demo import full_shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in GEMM_SHAPES + [full_shape()]:
+            for row in gemm_case(gen, dtype, shape,
+                                 timed=shape == full_shape()):
+                rows.append(row)
+                emit("kernel_check", **row)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"the GEMM disagrees with its plain version: {bad}")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 4: tiny models, card against CPU
 # --------------------------------------------------------------------------
 def phase_tiny():
     from repro_torch.models import get_model
@@ -245,7 +332,7 @@ def phase_tiny():
 
 
 # --------------------------------------------------------------------------
-# phase 4: the main path at full width
+# phase 5: the serving path at full width
 # --------------------------------------------------------------------------
 def make_requests(cfg, hw, n: int, seed: int):
     from repro_torch.core import arch_ops
@@ -283,7 +370,9 @@ def _counters():
     """The wrapper modules whose ``launches`` count kernel launches."""
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fl
-    return {"flash_attention": fl, "decode_attention": dec}
+    from repro_torch.kernels.preemptible_matmul import ops as mm
+    return {"flash_attention": fl, "decode_attention": dec,
+            "preemptible_matmul": mm}
 
 
 def _launches():
@@ -299,9 +388,9 @@ def _check_launches(cfg, counts, where):
     attn_slots = sum(m == "attn" for m, _ in cfg.block_pattern)
     expect = {"flash_attention": counts["prefill"] * attn_slots,
               "decode_attention": counts["decode"] * attn_slots
-              * cfg.n_periods}
+              * cfg.n_periods, "preemptible_matmul": 0}
     got = _launches()
-    if got != expect or min(got.values()) == 0:
+    if got != expect or min(counts.values()) == 0:
         raise SystemExit(f"{where}: kernel launches {got}, expected {expect} "
                          f"from step counts {counts}")
     return got
@@ -446,6 +535,27 @@ def profile_request(executor, prompt, max_new_tokens: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 6: the GEMM path at full width
+# --------------------------------------------------------------------------
+def phase_gemm_path(card: str) -> int:
+    """The demo's ``--full`` run; it raises unless the preempted and
+    uninterrupted accumulators are bitwise equal and within tolerance."""
+    from repro_torch.examples import preemptible_kernel_demo as demo
+    _reset_launches()
+    rep = demo.main(["--full", "--seed", "0"])
+    torch.cuda.synchronize()
+    got = _launches()
+    expect = {"flash_attention": 0, "decode_attention": 0,
+              "preemptible_matmul": 1 + rep["n_quanta"]}
+    if got != expect or rep["n_quanta"] != 48:
+        raise SystemExit(f"GEMM path: kernel launches {got}, expected "
+                         f"{expect} from 1 + {rep['n_quanta']} launches "
+                         "(48 quanta)")
+    emit("gemm_path", card=card, launches=got, **rep)
+    return got["preemptible_matmul"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -458,16 +568,24 @@ def main() -> int:
     cuda_lib.library()
     emit("device", card=card, torch=torch.__version__,
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
-    rows = phase_kernels()
+    # the plain versions' f32 products must not run in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = phase_kernels() + phase_gemm()
     phase_tiny()
     launches = phase_serve(card)
+    launches["preemptible_matmul"] = phase_gemm_path(card)
 
     sources = {"flash_attention": ("flash_attention.cu",
                                    "src/repro/kernels/flash_attention/kernel.py:90"),
                "decode_attention": ("decode_attention.cu",
-                                    "src/repro/kernels/decode_attention/kernel.py:91")}
+                                    "src/repro/kernels/decode_attention/kernel.py:91"),
+               "preemptible_matmul": ("preemptible_matmul.cu",
+                                      "src/repro/kernels/preemptible_matmul/kernel.py:59")}
     headline = {"flash_attention": dict(dtype="bfloat16", S=2048, causal=True),
-                "decode_attention": dict(dtype="bfloat16", T=2560, pos=2048)}
+                "decode_attention": dict(dtype="bfloat16", T=2560, pos=2048),
+                "preemptible_matmul": dict(dtype="bfloat16", M=2048, K=12288,
+                                           N=4096, k_tiles=[0, 96])}
     kernels = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]

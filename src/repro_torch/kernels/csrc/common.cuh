@@ -1,5 +1,5 @@
-// Shared helpers of the attention kernels: element conversion and warp
-// reductions.  Every kernel computes in f32 whatever its element type.
+// Shared helpers of the kernels: element conversion and warp reductions.
+// Every kernel computes in f32 whatever its element type.
 #pragma once
 
 #include <cuda_bf16.h>

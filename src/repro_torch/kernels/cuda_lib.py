@@ -36,6 +36,9 @@ _SIGNATURES = {
     # strides, scale, stream
     "prema_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _S, _F, _P],
+    # dtype, x, y, acc_in, acc_out, M, N, accM, accN, lo, hi, strides, stream
+    "prema_matmul_resumable": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S,
+                               _P],
     "prema_decode_chunk": [],
     "prema_decode_max_group": [],
 }

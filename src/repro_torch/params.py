@@ -3,14 +3,18 @@
 ``params_from_numpy`` maps the JAX pytree of ``transformer.init_params``
 (leaves as numpy arrays) leaf by leaf to tensors, keeping the nested names
 and the leading ``n_periods`` axis of every slot leaf, so both packages can
-run on the same weights.
+run on the same weights.  ``matmul_checkpoint_from_numpy`` does the same
+for a preempted GEMM's checkpoint, so a GEMM stopped in one package
+resumes in the other.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.preemptible_matmul import MatmulCheckpoint
 
 
 def resolve_device(device) -> torch.device:
@@ -48,3 +52,14 @@ def params_from_numpy(tree: Dict[str, Any], device,
             return {k: convert(v) for k, v in node.items()}
         return _leaf_to_tensor(node, dev, dtype)
     return convert(tree)
+
+
+def matmul_checkpoint_from_numpy(acc, k_tile: int, n_ktiles: int,
+                                 shape: Tuple[int, int],
+                                 device) -> MatmulCheckpoint:
+    """The fields of a ``repro`` ``MatmulCheckpoint`` (its accumulator as an
+    array-like) → the port's checkpoint on ``device``."""
+    return MatmulCheckpoint(
+        acc=_leaf_to_tensor(acc, resolve_device(device), torch.float32),
+        k_tile=int(k_tile), n_ktiles=int(n_ktiles),
+        shape=(int(shape[0]), int(shape[1])))

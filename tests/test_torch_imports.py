@@ -15,12 +15,16 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 COPIES = ([f"configs/{m}.py" for m in (
     "__init__", "olmo_1b", "deepseek_coder_33b", "qwen3_8b", "qwen1_5_4b",
     "xlstm_350m", "llama32_vision_11b", "hubert_xlarge",
-    "jamba15_large_398b", "phi35_moe_42b", "qwen3_moe_30b_a3b")]
+    "jamba15_large_398b", "phi35_moe_42b", "qwen3_moe_30b_a3b",
+    "paper_workloads")]
     + [f"core/{m}.py" for m in (
         "task", "ops", "registry", "events", "preemption", "ready_queue",
         "scheduler", "arbiter", "predictor", "metrics", "faults", "simulator",
         "cluster", "arch_ops", "__init__")]
-    + ["serving/request.py", "serving/kv_cache.py", "serving/__init__.py"])
+    + ["serving/request.py", "serving/kv_cache.py", "serving/__init__.py"]
+    + [f"workloads/{m}.py" for m in (
+        "__init__", "admission", "arrivals", "generator", "retry",
+        "serving_adapter", "spec", "tenants", "trace_io")])
 # the engine copy's two edits: the port's H100 is the default hardware
 ENGINE_EDITS = [
     ("from repro_torch.hw import TPU_V5E, HardwareModel",
