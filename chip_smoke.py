@@ -2,28 +2,34 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases kernels,gemm   # a subset, no summary
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-1. device: the card's name and power limit, torch, and the kernel build
-   (``nvcc`` from the sources in this checkout);
+1. device: the card's name and power limit, torch, the kernel build
+   (``nvcc`` from the sources in this checkout), and per tensor-core
+   kernel its registers, stack, local memory and its HGMMA and UTMALDG
+   instructions (``cuobjdump``);
 2. each attention kernel against its plain PyTorch version on the card
-   at the serving path's shapes (B 1, Hq 32, Hkv 8, D 128; bf16 and f32),
+   at the serving path's shapes (B 1, Hq 32, Hkv 8, D 128; bf16 and f32;
+   flash runs its wgmma kernel in bf16 and its CUDA-core kernel in f32),
    with kernel, plain and library (SDPA, a yardstick the port never calls)
    times and the card's bound;
 3. the preemptible GEMM against its plain version run in float64, at the
    reference test's shapes and qwen3-8b's full-width down projection, over
    the whole K range and a middle range seeded from a non-zero
-   accumulator, f32 and bf16; timed at full width beside cuBLAS;
+   accumulator, f32 (CUDA-core kernel) and bf16 (wgmma kernel); timed at
+   full width beside cuBLAS;
 4. tiny qwen3-8b, olmo-1b and deepseek-coder-33b in f32 on the card
    against the same weights on the CPU;
 5. the serving path: the PREMA ``ServingEngine`` serving 8 requests on
    full-width qwen3-8b in bf16, checked against isolated runs, with the
-   kernels' launch counts checked against the executor's step counts;
+   kernels' launch counts, per kernel variant, checked against the
+   executor's step counts;
 6. the GEMM path: the preemptible-kernel demo at full width
    (``repro_torch.examples.preemptible_kernel_demo --full``), one
    uninterrupted launch and 48 preempted quanta that must agree bit for
-   bit, with its launch count checked.
+   bit, with its launch count (all on the wgmma kernel) checked.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -36,7 +42,10 @@ import os
 # cuBLAS determinism needs this before CUDA starts
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import argparse
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -51,10 +60,15 @@ PEAK_OPS = {torch.bfloat16: 989e12,           # tensor cores, dense
             torch.float32: 67e12}             # f32 outside the tensor cores
 # kernel vs plain on the card, as (atol, rtol).  The reference is the plain
 # version run in f32 on the same values (bf16 inputs upcast exactly).  Both
-# sum in f32, in different orders.  A bf16 kernel rounds its f32 result once,
-# so it must lie within half a bf16 ulp (at most 2**-8 relative) of the f32
-# reference, plus f32 summation error: tighter than one ulp of the plain
-# version's bf16 output, and missed by truncation or a dropped key tile.
+# sum in f32, in different orders.  A bf16 kernel that keeps P in f32 (the
+# decode kernel) rounds its f32 result once, so it must lie within half a
+# bf16 ulp (at most 2**-8 relative) of the f32 reference, plus f32
+# summation error: tighter than one ulp of the plain version's bf16 output,
+# and missed by truncation or a dropped key tile.  The bf16 flash kernel
+# also rounds P to bf16 before P @ V, as the JAX model does: it is held to
+# ``bf16_tolerance`` (kernels/flash_attention/ref.py), 1e-5 + 2**-8 |ref| +
+# 2**-8 (P @ |V|), which a dropped key tile, a causal mask one key off or a
+# wrong KV head each exceed (tests/test_torch_tensorcore_numerics.py).
 TOL = {torch.float32: (3e-4, 3e-4), torch.bfloat16: (1e-5, 2.0 ** -8)}
 # The preemptible GEMM is held elementwise to ``f32_sum_tolerance``
 # (kernels/preemptible_matmul/ref.py) against its plain version run in
@@ -62,7 +76,8 @@ TOL = {torch.float32: (3e-4, 3e-4), torch.bfloat16: (1e-5, 2.0 ** -8)}
 # over the n reduction rows of the range, the growth of f32 rounding error
 # over n additions.  Dropping a K tile or the last ragged K column, ignoring
 # acc_in, or TF32 products each exceed it (tests/test_torch_matmul.py
-# simulates each on the CPU).
+# simulates each on the CPU, and the tensor cores' k16 steps in
+# tests/test_torch_tensorcore_numerics.py).
 GEMM_SHAPES = [(128, 128, 128), (256, 384, 512), (100, 200, 300),
                (64, 1000, 72), (1, 129, 1), (257, 64, 130)]
 TINY_TOL = 1e-4
@@ -112,10 +127,14 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def within(a: torch.Tensor, b: torch.Tensor, tol: tuple) -> bool:
+def tolerance(ref: torch.Tensor, tol: tuple) -> torch.Tensor:
     atol, rtol = tol
-    a, b = a.float(), b.float()
-    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+    return atol + rtol * ref.float().abs()
+
+
+def over_tol(a: torch.Tensor, b: torch.Tensor, tol: torch.Tensor) -> float:
+    """max |a - b| / tol: at most 1 where ``a`` is within tolerance."""
+    return float(((a.float() - b.float()).abs() / tol).max())
 
 
 def as_f32(*ts):
@@ -132,16 +151,24 @@ def _model_layout(gen, b, t, h, d, dtype):
 
 
 def flash_case(gen, dtype, s, causal):
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (bf16_tolerance,
+                                                     flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import kernel_variant
     F = torch.nn.functional
     q = _model_layout(gen, B, s, HQ, D, dtype)
     k = _model_layout(gen, B, s, HKV, D, dtype)
     v = _model_layout(gen, B, s, HKV, D, dtype)
     out = flash_attention(q, k, v, causal)
     ref = flash_attention_plain(*as_f32(q, k, v), causal)
+    variant = kernel_variant(dtype, D)
+    if variant == "wgmma":
+        bound, tol_name = bf16_tolerance(q, k, v, causal), "bf16_tolerance"
+    else:
+        bound, tol_name = tolerance(ref, TOL[dtype]), f"{TOL[dtype]}"
+    ratio = over_tol(out, ref, bound)
     torch.cuda.synchronize()
-    err, tol = max_err(out, ref), TOL[dtype]
+    err = max_err(out, ref)
     sets = [(q, k, v)] + [tuple(_model_layout(gen, B, s, h, D, dtype)
                                 for h in (HQ, HKV, HKV))
                           for _ in range(n_copies(nbytes(q, k, v)) - 1)]
@@ -150,9 +177,10 @@ def flash_case(gen, dtype, s, causal):
     moved = nbytes(q, k, v, out)
     t_ops, t_bytes = ops / PEAK_OPS[dtype], moved / HBM_BYTES_PER_S
     row = dict(
-        kernel="flash_attention", dtype=str(dtype).split(".")[1], S=s, T=s,
-        causal=causal, max_abs_err=err, atol=tol[0], rtol=tol[1],
-        ok=within(out, ref, tol),
+        kernel="flash_attention", variant=variant,
+        dtype=str(dtype).split(".")[1], S=s, T=s, causal=causal,
+        max_abs_err=err, tolerance=tol_name, err_over_tol=ratio,
+        ok=ratio <= 1.0,
         ms=time_ms(lambda a, b_, c: flash_attention(a, b_, c, causal), sets),
         plain_ms=time_ms(lambda a, b_, c: flash_attention_plain(a, b_, c,
                                                                 causal), sets),
@@ -177,6 +205,7 @@ def decode_case(gen, dtype, t, pos):
     ref = decode_attention_plain(*as_f32(q, k, v), pos)
     torch.cuda.synchronize()
     err, tol = max_err(out, ref), TOL[dtype]
+    ratio = over_tol(out, ref, tolerance(ref, tol))
     live = 2 * B * HKV * (pos + 1) * D * k.element_size()
     sets = [(q, k, v)] + [inputs() for _ in range(n_copies(live) - 1)]
     ops = 4 * B * HQ * D * (pos + 1)
@@ -189,8 +218,8 @@ def decode_case(gen, dtype, t, pos):
             enable_gqa=True)
     return dict(
         kernel="decode_attention", dtype=str(dtype).split(".")[1], T=t,
-        pos=pos, max_abs_err=err, atol=tol[0], rtol=tol[1],
-        ok=within(out, ref, tol),
+        pos=pos, max_abs_err=err, tolerance=f"{tol}", err_over_tol=ratio,
+        ok=ratio <= 1.0,
         ms=time_ms(lambda a, b_, c: decode_attention(a, b_, c, pos), sets),
         plain_ms=time_ms(lambda a, b_, c: decode_attention_plain(a, b_, c,
                                                                  pos), sets),
@@ -225,6 +254,7 @@ def gemm_case(gen, dtype, shape, timed):
                                                         matmul_partial_plain,
                                                         matmul_resumable,
                                                         start)
+    from repro_torch.kernels.preemptible_matmul.ops import kernel_variant
     m, k, n = shape
 
     def inputs():
@@ -243,7 +273,8 @@ def gemm_case(gen, dtype, shape, timed):
         torch.cuda.synchronize()
         diff = (out.double() - exact).abs()
         rows.append(dict(
-            kernel="preemptible_matmul", dtype=str(dtype).split(".")[1],
+            kernel="preemptible_matmul", variant=kernel_variant(dtype, 128),
+            dtype=str(dtype).split(".")[1],
             M=m, K=k, N=n, k_tiles=[ks, ke], max_abs_err=float(diff.max()),
             err_over_tol=float((diff / tol.clamp_min(1e-300)).max()),
             ok=bool((diff <= tol).all())))
@@ -376,19 +407,38 @@ def _counters():
 
 
 def _launches():
-    return {name: mod.launches for name, mod in _counters().items()}
+    """Launches per kernel: ``wrapper/variant`` where a wrapper has two
+    kernels, whose counts must add up to the wrapper's own."""
+    out = {}
+    for name, mod in _counters().items():
+        by = getattr(mod, "variant_launches", None)
+        if by is None:
+            out[name] = mod.launches
+            continue
+        if sum(by.values()) != mod.launches:
+            raise SystemExit(f"{name}: {mod.launches} launches, by variant "
+                             f"{by}")
+        out.update({f"{name}/{v}": n for v, n in by.items()})
+    return out
 
 
 def _reset_launches():
     for mod in _counters().values():
         mod.launches = 0
+        for v in getattr(mod, "variant_launches", {}):
+            mod.variant_launches[v] = 0
+
+
+def _no_launches():
+    return dict.fromkeys(_launches(), 0)
 
 
 def _check_launches(cfg, counts, where):
     attn_slots = sum(m == "attn" for m, _ in cfg.block_pattern)
-    expect = {"flash_attention": counts["prefill"] * attn_slots,
+    expect = {**_no_launches(),
+              "flash_attention/wgmma": counts["prefill"] * attn_slots,
               "decode_attention": counts["decode"] * attn_slots
-              * cfg.n_periods, "preemptible_matmul": 0}
+              * cfg.n_periods}
     got = _launches()
     if got != expect or min(counts.values()) == 0:
         raise SystemExit(f"{where}: kernel launches {got}, expected {expect} "
@@ -489,7 +539,7 @@ def phase_serve(card: str, n_requests: int = 8, seed: int = 0):
 
 def _family(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:
         return "flash_attention"
     if "decode_split_kernel" in name or "decode_combine_kernel" in name:
         return "decode_attention"
@@ -546,17 +596,101 @@ def phase_gemm_path(card: str) -> int:
     rep = demo.main(["--full", "--seed", "0"])
     torch.cuda.synchronize()
     got = _launches()
-    expect = {"flash_attention": 0, "decode_attention": 0,
-              "preemptible_matmul": 1 + rep["n_quanta"]}
+    expect = {**_no_launches(),
+              "preemptible_matmul/wgmma": 1 + rep["n_quanta"]}
     if got != expect or rep["n_quanta"] != 48:
         raise SystemExit(f"GEMM path: kernel launches {got}, expected "
                          f"{expect} from 1 + {rep['n_quanta']} launches "
                          "(48 quanta)")
     emit("gemm_path", card=card, launches=got, **rep)
-    return got["preemptible_matmul"]
+    return got["preemptible_matmul/wgmma"]
 
 
-def main() -> int:
+# the tensor-core kernels, whose compiled code phase 1 reports
+TC_KERNELS = ("gemm_resume_wgmma_kernel", "flash_fwd_wgmma_kernel")
+
+
+def compiled_kernels(lib_path: Path):
+    """Per tensor-core kernel: its registers, stack and local memory per
+    thread (local > 0 means spills) and its count of HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions, from ``cuobjdump`` on the built
+    library; None where the toolkit has no ``cuobjdump``."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+
+    def dump(flag):
+        return subprocess.run([exe, flag, str(lib_path)], check=True,
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+    res, sass = dump("-res-usage"), dump("-sass")
+    out = {}
+    for name in TC_KERNELS:
+        m = re.search(rf"Function \S*{name}\S*:\s+REG:(\d+) STACK:(\d+) "
+                      rf"SHARED:\d+ LOCAL:(\d+)", res)
+        code = "".join(part for part in sass.split("Function : ")[1:]
+                       if name in part.split(None, 1)[0])
+        out[name] = dict(
+            registers=int(m.group(1)) if m else None,
+            stack_bytes=int(m.group(2)) if m else None,
+            local_bytes=int(m.group(3)) if m else None,
+            HGMMA=len(re.findall(r"\bHGMMA\.", code)),
+            UTMALDG=len(re.findall(r"\bUTMALDG\.", code)))
+    return out
+
+
+PHASES = ("kernels", "gemm", "tiny", "serve", "path")
+# the kernels line: name, launch counter, source, TPU kernel, headline row
+KERNELS = [
+    ("flash_attention_wgmma_bf16", "flash_attention/wgmma",
+     "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:90",
+     dict(kernel="flash_attention", dtype="bfloat16", S=2048, causal=True)),
+    ("flash_attention_cuda_core_f32", "flash_attention/cuda_core",
+     "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:90",
+     dict(kernel="flash_attention", dtype="float32", S=2048, causal=True)),
+    ("decode_attention", "decode_attention", "decode_attention.cu",
+     "src/repro/kernels/decode_attention/kernel.py:91",
+     dict(kernel="decode_attention", dtype="bfloat16", T=2560, pos=2048)),
+    ("preemptible_matmul_wgmma_bf16", "preemptible_matmul/wgmma",
+     "preemptible_matmul.cu",
+     "src/repro/kernels/preemptible_matmul/kernel.py:59",
+     dict(kernel="preemptible_matmul", dtype="bfloat16", M=2048, K=12288,
+          N=4096, k_tiles=[0, 96])),
+    ("preemptible_matmul_cuda_core_f32", "preemptible_matmul/cuda_core",
+     "preemptible_matmul.cu",
+     "src/repro/kernels/preemptible_matmul/kernel.py:59",
+     dict(kernel="preemptible_matmul", dtype="float32", M=2048, K=12288,
+          N=4096, k_tiles=[0, 96])),
+]
+
+
+def kernels_line(rows, launches):
+    kernels = []
+    for name, counter, src, replaces, head_at in KERNELS:
+        variant = counter.partition("/")[2]
+        mine = [r for r in rows if r["kernel"] == head_at["kernel"]
+                and (not variant or r["variant"] == variant)]
+        head = next(r for r in mine
+                    if all(r[k] == v for k, v in head_at.items()))
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
+            launches=launches[counter],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], at=head_at))
+    return kernels
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                         + "; the kernels line needs all of them")
+    phases = ap.parse_args(argv).phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"phases must be among {PHASES}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -566,41 +700,32 @@ def main() -> int:
     card = card_line()
     t0 = time.perf_counter()
     cuda_lib.library()
+    build_s = time.perf_counter() - t0
+    nvcc = subprocess.run([cuda_lib._nvcc(), "--version"], check=True,
+                          capture_output=True, text=True).stdout
     emit("device", card=card, torch=torch.__version__,
-         cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
+         cuda=torch.version.cuda, nvcc=nvcc.strip().splitlines()[-1],
+         build_s=build_s,
+         compiled=compiled_kernels(cuda_lib.library_path()))
     # the plain versions' f32 products must not run in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = phase_kernels() + phase_gemm()
-    phase_tiny()
-    launches = phase_serve(card)
-    launches["preemptible_matmul"] = phase_gemm_path(card)
+    rows = []
+    if "kernels" in phases:
+        rows += phase_kernels()
+    if "gemm" in phases:
+        rows += phase_gemm()
+    if "tiny" in phases:
+        phase_tiny()
+    launches = _no_launches()
+    if "serve" in phases:
+        launches.update(phase_serve(card))
+    if "path" in phases:
+        launches["preemptible_matmul/wgmma"] = phase_gemm_path(card)
 
-    sources = {"flash_attention": ("flash_attention.cu",
-                                   "src/repro/kernels/flash_attention/kernel.py:90"),
-               "decode_attention": ("decode_attention.cu",
-                                    "src/repro/kernels/decode_attention/kernel.py:91"),
-               "preemptible_matmul": ("preemptible_matmul.cu",
-                                      "src/repro/kernels/preemptible_matmul/kernel.py:59")}
-    headline = {"flash_attention": dict(dtype="bfloat16", S=2048, causal=True),
-                "decode_attention": dict(dtype="bfloat16", T=2560, pos=2048),
-                "preemptible_matmul": dict(dtype="bfloat16", M=2048, K=12288,
-                                           N=4096, k_tiles=[0, 96])}
-    kernels = []
-    for name, (src, replaces) in sources.items():
-        mine = [r for r in rows if r["kernel"] == name]
-        head = next(r for r in mine
-                    if all(r[k] == v for k, v in headline[name].items()))
-        kernels.append(dict(
-            name=name, route="cuda",
-            source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
-            launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=head["ms"], plain_ms=head["plain_ms"],
-            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"], at=headline[name]))
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    if set(phases) == set(PHASES):
+        print(json.dumps({"kernels": kernels_line(rows, launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

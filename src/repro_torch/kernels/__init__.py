@@ -3,10 +3,36 @@ version.  A wrapper runs the plain version for CPU tensors only; for CUDA
 tensors it launches its kernel or raises."""
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def tma_compatible(strides: Sequence[int], element_size: int,
+                   data_ptr: int) -> bool:
+    """Whether the tensor memory accelerator (TMA) can read a tensor with
+    these element strides and this base address: unit innermost stride,
+    every other stride positive and a multiple of 16 bytes, base aligned to
+    16 bytes."""
+    return (strides[-1] == 1 and data_ptr % 16 == 0
+            and all(s > 0 and s * element_size % 16 == 0
+                    for s in strides[:-1]))
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where TMA can read it (:func:`tma_compatible`), else a
+    copy of it that TMA can read: a fresh tensor whose rows are padded to a
+    multiple of 16 bytes, viewed back to ``t``'s shape."""
+    if tma_compatible(t.stride(), t.element_size(), t.data_ptr()):
+        return t
+    last = t.shape[-1]
+    pad = -last % (16 // t.element_size())
+    buf = torch.empty((*t.shape[:-1], last + pad), dtype=t.dtype,
+                      device=t.device)
+    return buf[..., :last].copy_(t)
 
 
 def check_attention_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

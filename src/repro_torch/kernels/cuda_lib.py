@@ -36,9 +36,15 @@ _SIGNATURES = {
     # strides, scale, stream
     "prema_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _S, _F, _P],
+    # q, k, v, o, B, Hq, Hkv, S, T, strides, scale, causal, stream
+    "prema_flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _S,
+                                    _F, _I, _P],
     # dtype, x, y, acc_in, acc_out, M, N, accM, accN, lo, hi, strides, stream
     "prema_matmul_resumable": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S,
                                _P],
+    # x, y, acc_in, acc_out, M, N, K, accM, accN, lo, hi, strides, stream
+    "prema_matmul_resumable_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, _S, _P],
     "prema_decode_chunk": [],
     "prema_decode_max_group": [],
 }
@@ -93,11 +99,16 @@ def _build(target: Path) -> None:
         os.replace(so, target)   # atomic: concurrent builds agree
 
 
+def library_path() -> Path:
+    """Where the library of the current sources and flags is built."""
+    return BUILD_DIR / f"libprema_kernels-{_digest()}.so"
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
     if _lib is None:
-        target = BUILD_DIR / f"libprema_kernels-{_digest()}.so"
+        target = library_path()
         if not target.exists():
             _build(target)
         lib = ctypes.CDLL(str(target))

@@ -7,8 +7,11 @@ and the checkpoint built on it (follows
                                 checkpoint = (accumulator, k_tile).
 * ``MatmulCheckpoint``        — the ACCQ-analogue context object.
 
-Unlike the reference, x and y are never padded: the kernel masks the
-ragged edges and reads them through their strides.  The checkpoint's
+Two kernels, chosen by :func:`kernel_variant` from the dtype alone:
+``"wgmma"`` (tensor cores fed by TMA) for bf16, ``"cuda_core"`` (one
+``fmaf`` per product, no TF32) for f32.  Unlike the reference, x and y are
+never padded to tiles: the kernels take the ragged edges (TMA's zero fill,
+or masks) and read x and y through their strides.  The checkpoint's
 accumulator keeps the reference's padded (Mp, Np) shape, so its
 ``context_bytes`` are the same; the padding stays 0.
 """
@@ -19,14 +22,29 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import DTYPE_CODES, cuda_lib
+from repro_torch.kernels import DTYPE_CODES, cuda_lib, tma_operand
 from repro_torch.kernels.preemptible_matmul.ref import matmul_partial_plain
 
+WGMMA_BK = 64   # reduction rows of one stage of the wgmma kernel
 launches = 0   # kernel launches by this wrapper in this process
+variant_launches = {"wgmma": 0, "cuda_core": 0}   # the same, by kernel
 
 
 def _n_ktiles(k: int, bk: int) -> int:
     return -(-k // bk)
+
+
+def kernel_variant(dtype: torch.dtype, bk: int) -> str:
+    """The kernel that a CUDA launch of this dtype runs.  A bf16 launch must
+    start on one of the wgmma kernel's 64-row stages, so that every output
+    element sees the same tensor-core steps however the K range is split:
+    a bf16 ``bk`` that is not a multiple of 64 raises ``ValueError``."""
+    if dtype != torch.bfloat16:
+        return "cuda_core"
+    if bk % WGMMA_BK:
+        raise ValueError(f"bf16 on the card needs bk a multiple of "
+                         f"{WGMMA_BK}, got {bk}")
+    return "wgmma"
 
 
 def matmul_resumable(x: torch.Tensor, y: torch.Tensor, acc_in: torch.Tensor,
@@ -37,7 +55,12 @@ def matmul_resumable(x: torch.Tensor, y: torch.Tensor, acc_in: torch.Tensor,
     rows of y) of x @ y to ``acc_in`` and returns the result, written into
     ``out`` (a contiguous f32 tensor shaped like ``acc_in``, which may be
     ``acc_in`` itself) or else a new tensor.  ``acc_in`` is left as it was
-    unless it is ``out``."""
+    unless it is ``out``.  On the card a bf16 ``bk`` must be a multiple of
+    64 (:func:`kernel_variant`), and the wgmma kernel reads x and y by TMA:
+    an input whose strides TMA cannot take (column stride not 1, row stride
+    not a multiple of 8 elements, base not 16-byte aligned) is copied first
+    into rows padded to 16 bytes (:func:`repro_torch.kernels.tma_operand`).
+    """
     global launches
     if x.dim() != 2 or y.dim() != 2 or acc_in.dim() != 2:
         raise ValueError(f"x, y and acc must be matrices, got x{tuple(x.shape)}"
@@ -74,13 +97,25 @@ def matmul_resumable(x: torch.Tensor, y: torch.Tensor, acc_in: torch.Tensor,
         return out.copy_(acc_in)
     if x.device.type == "cpu":
         return out.copy_(matmul_partial_plain(x, y, acc_in, k_start, k_end, bk))
-    err = cuda_lib.library().prema_matmul_resumable(
-        DTYPE_CODES[x.dtype], x.data_ptr(), y.data_ptr(), acc_in.data_ptr(),
-        out.data_ptr(), m, n, acc_in.shape[0], acc_in.shape[1], k_start * bk,
-        min(k_end * bk, k), cuda_lib.strides_arg(x, y, acc_in, out),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_lib.check(err, "matmul_resumable")
+    variant = kernel_variant(x.dtype, bk)
+    lib, stream = cuda_lib.library(), torch.cuda.current_stream(
+        x.device).cuda_stream
+    lo, hi = k_start * bk, min(k_end * bk, k)
+    if variant == "wgmma":
+        x, y = tma_operand(x), tma_operand(y)
+    ptrs = (x.data_ptr(), y.data_ptr(), acc_in.data_ptr(), out.data_ptr())
+    strides = cuda_lib.strides_arg(x, y, acc_in, out)
+    acc_m, acc_n = acc_in.shape
+    if variant == "wgmma":
+        err = lib.prema_matmul_resumable_wgmma(
+            *ptrs, m, n, k, acc_m, acc_n, lo, hi, strides, stream)
+    else:
+        err = lib.prema_matmul_resumable(
+            DTYPE_CODES[x.dtype], *ptrs, m, n, acc_m, acc_n, lo, hi, strides,
+            stream)
+    cuda_lib.check(err, f"matmul_resumable ({variant})")
     launches += 1
+    variant_launches[variant] += 1
     return out
 
 

@@ -9,6 +9,8 @@ import torch
 
 # elementwise tolerance factor of :func:`f32_sum_tolerance`
 SUM_TOL_FACTOR = 8.0
+# reduction rows that one tensor-core (wgmma) step adds before it rounds
+TC_STEP = 16
 
 
 def matmul_plain(x: torch.Tensor, y: torch.Tensor,
@@ -46,12 +48,29 @@ def f32_sum_tolerance(x: torch.Tensor, y: torch.Tensor, acc: torch.Tensor,
     whatever order the products are added, and |s_k| stays within |acc| +
     |sum t| + sqrt(sum t**2) for data of either sign or of one sign.  The
     tolerance is ``SUM_TOL_FACTOR`` times that bound over the n = hi - lo
-    reduction rows.  Dropping one K tile or the last ragged column,
-    ignoring ``acc``, or rounding f32 inputs to TF32 each exceed it."""
+    reduction rows.
+
+    bf16 inputs are summed on the tensor cores: each wgmma step adds
+    ``TC_STEP`` = 16 exact products of bf16 values and the accumulator and
+    rounds once, in a mode NVIDIA does not document.  Rounded toward zero,
+    each of the ceil(n / 16) roundings errs by less than one f32 ulp of its
+    result, 2**-23 relative, and all with the sign of the sum, so they add
+    up linearly to at most ceil(n / 16) * 2**-23 * max |s_k|.  For bf16 the
+    tolerance adds that term, 2 * ceil(n / 16) * 2**-24 * (the same
+    magnitude).
+
+    Dropping one K tile or the last ragged column, ignoring ``acc``, or
+    rounding f32 inputs to TF32 each exceed the tolerance by more than 2x
+    (``tests/test_torch_matmul.py`` simulates the f32 FMA chain and
+    ``tests/test_torch_tensorcore_numerics.py`` the k16 steps)."""
     m, n, k = x.shape[0], y.shape[1], x.shape[1]
     lo, hi = k_start * bk, min(k_end * bk, k)
+    rows = max(hi - lo, 0)
     mag = acc.abs().double()
     if hi > lo:
         xs, ys = x[:, lo:hi].double(), y[lo:hi].double()
         mag[:m, :n] += (xs @ ys).abs() + ((xs * xs) @ (ys * ys)).sqrt()
-    return SUM_TOL_FACTOR * math.sqrt(max(hi - lo, 0) + 1) * 2.0 ** -24 * mag
+    factor = SUM_TOL_FACTOR * math.sqrt(rows + 1)
+    if x.dtype == torch.bfloat16:
+        factor += 2 * -(-rows // TC_STEP)
+    return factor * 2.0 ** -24 * mag

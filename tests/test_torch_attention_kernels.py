@@ -10,8 +10,10 @@ from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (bf16_tolerance,
+                                                 flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention import ops as flash_ops
 
 torch.set_num_threads(2)
 TOL = {"float32": 3e-4, "bfloat16": 3e-2}
@@ -117,8 +119,10 @@ def test_decode_rejects_pos_outside_cache():
 
 
 # kernel against the plain version run in f32 on the same values, as
-# (atol, rtol).  A bf16 kernel rounds its f32 result once: within half a
-# bf16 ulp (2**-8 relative) plus f32 summation error.
+# (atol, rtol).  A bf16 kernel that keeps P in f32 (decode) rounds its f32
+# result once: within half a bf16 ulp (2**-8 relative) plus f32 summation
+# error.  The bf16 flash kernel at D = 128 (wgmma) also rounds P to bf16
+# before P @ V and is held to ``bf16_tolerance``.
 CARD_TOL = {torch.float32: (3e-4, 3e-4), torch.bfloat16: (1e-5, 2.0 ** -8)}
 
 
@@ -135,10 +139,19 @@ def test_kernels_match_plain_on_card(dtype):
 
     def check(out, ref):
         torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
+    variant = flash_ops.kernel_variant(dtype, 128)
+    before = dict(flash_ops.variant_launches)
     for s, causal in ((37, True), (100, False), (256, True)):
         q, k, v = (rand(1, s, h, 128).transpose(1, 2) for h in (32, 8, 8))
-        check(flash_attention(q, k, v, causal),
-              flash_attention_plain(q.float(), k.float(), v.float(), causal))
+        out = flash_attention(q, k, v, causal)
+        ref = flash_attention_plain(q.float(), k.float(), v.float(), causal)
+        if variant == "wgmma":
+            assert bool(((out.float() - ref).abs()
+                         <= bf16_tolerance(q, k, v, causal)).all())
+        else:
+            check(out, ref)
+    assert flash_ops.variant_launches[variant] == before[variant] + 3
+    assert sum(flash_ops.variant_launches.values()) == sum(before.values()) + 3
     k, v = (rand(1, 300, 8, 128).transpose(1, 2) for _ in range(2))
     q = rand(1, 32, 128)
     for pos in (0, 63, 64, 299):

@@ -25,6 +25,7 @@ from repro_torch.kernels.preemptible_matmul import (advance, f32_sum_tolerance,
                                                     finish, matmul,
                                                     matmul_partial_plain,
                                                     matmul_resumable, start)
+from repro_torch.kernels.preemptible_matmul import ops as mm_ops
 from repro_torch.params import matmul_checkpoint_from_numpy
 
 torch.set_num_threads(2)
@@ -298,6 +299,8 @@ def test_kernel_matches_plain_on_card(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    variant = mm_ops.kernel_variant(dtype, 128)
+    before = mm_ops.variant_launches[variant]
     for m, k, n in SHAPES:
         x = torch.randn((m, k), generator=gen, device="cuda", dtype=dtype)
         y = torch.randn((k, n), generator=gen, device="cuda", dtype=dtype)
@@ -313,6 +316,9 @@ def test_kernel_matches_plain_on_card(dtype):
         while not chunked.done:
             chunked = advance(chunked, x, y, 1)
         assert torch.equal(one.acc, chunked.acc)
+    # per shape: 2 checked ranges, 1 uninterrupted launch, 1 per K tile
+    expect = sum(3 + -(-k // 128) for _, k, _ in SHAPES)
+    assert mm_ops.variant_launches[variant] == before + expect
 
 
 if __name__ == "__main__":
