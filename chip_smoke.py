@@ -8,13 +8,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit, torch, the kernel build
    (``nvcc`` from the sources in this checkout), and per tensor-core
-   kernel its registers, stack, local memory and its HGMMA and UTMALDG
-   instructions (``cuobjdump``);
+   kernel and for decode its registers, stack, local memory and its
+   HGMMA, UTMALDG and LDGSTS (cp.async) instructions (``cuobjdump``);
 2. each attention kernel against its plain PyTorch version on the card
    at the serving path's shapes (B 1, Hq 32, Hkv 8, D 128; bf16 and f32;
-   flash runs its wgmma kernel in bf16 and its CUDA-core kernel in f32),
-   with kernel, plain and library (SDPA, a yardstick the port never calls)
-   times and the card's bound;
+   flash runs its wgmma kernel in bf16 and its CUDA-core kernel in f32;
+   decode also at deepseek-coder-33b's Hq 56), with kernel, plain and
+   library (SDPA, a yardstick the port never calls) times by CUDA events
+   and the card's bound; for decode also device times from CUDA-graph
+   replays, a bitwise run-to-run check, and one call with a device
+   ``pos`` captured in a CUDA graph and replayed at four positions;
 3. the preemptible GEMM against its plain version run in float64, at the
    reference test's shapes and qwen3-8b's full-width down projection, over
    the whole K range and a middle range seeded from a non-zero
@@ -101,7 +104,9 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 def time_ms(fn, sets, reps: int = 20) -> float:
     """Mean ms of ``fn(*inputs)`` by CUDA events, rotating over ``sets``
-    so each call finds its inputs outside the L2 cache."""
+    so each call finds its inputs outside the L2 cache.  The calls are
+    issued back to back from Python, so for a kernel shorter than its
+    wrapper's host work this is the host's issue rate: host plus device."""
     for s in sets[:2]:
         fn(*s)
     torch.cuda.synchronize()
@@ -113,6 +118,34 @@ def time_ms(fn, sets, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, sets, reps: int = 20, replays: int = 5) -> float:
+    """Device ms per call of ``fn(*inputs)``: ``reps`` calls, rotating over
+    ``sets``, captured once in a CUDA graph and replayed ``replays`` times
+    between two CUDA events.  One replay is one host call, so the host's
+    issue of each call drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up off the capture
+        for s in sets[:2]:
+            fn(*s)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def n_copies(set_bytes: int) -> int:
@@ -191,24 +224,26 @@ def flash_case(gen, dtype, s, causal):
     return row
 
 
-def decode_case(gen, dtype, t, pos):
+def decode_case(gen, dtype, t, pos, hq=HQ):
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
     F = torch.nn.functional
 
     def inputs():
-        q = torch.randn((B, HQ, D), generator=gen, device="cuda", dtype=dtype)
+        q = torch.randn((B, hq, D), generator=gen, device="cuda", dtype=dtype)
         return (q, _model_layout(gen, B, t, HKV, D, dtype),
                 _model_layout(gen, B, t, HKV, D, dtype))
     q, k, v = inputs()
     out = decode_attention(q, k, v, pos)
+    again = decode_attention(q, k, v, pos)
     ref = decode_attention_plain(*as_f32(q, k, v), pos)
     torch.cuda.synchronize()
     err, tol = max_err(out, ref), TOL[dtype]
     ratio = over_tol(out, ref, tolerance(ref, tol))
+    bitwise = bool(torch.equal(out, again))
     live = 2 * B * HKV * (pos + 1) * D * k.element_size()
     sets = [(q, k, v)] + [inputs() for _ in range(n_copies(live) - 1)]
-    ops = 4 * B * HQ * D * (pos + 1)
+    ops = 4 * B * hq * D * (pos + 1)
     moved = nbytes(q, out) + live
     t_ops, t_bytes = ops / PEAK_OPS[dtype], moved / HBM_BYTES_PER_S
 
@@ -217,15 +252,49 @@ def decode_case(gen, dtype, t, pos):
             q_[:, :, None], k_[:, :, :pos + 1], v_[:, :, :pos + 1],
             enable_gqa=True)
     return dict(
-        kernel="decode_attention", dtype=str(dtype).split(".")[1], T=t,
-        pos=pos, max_abs_err=err, tolerance=f"{tol}", err_over_tol=ratio,
-        ok=ratio <= 1.0,
+        kernel="decode_attention", dtype=str(dtype).split(".")[1], Hq=hq,
+        T=t, pos=pos, max_abs_err=err, tolerance=f"{tol}", err_over_tol=ratio,
+        bitwise_run_to_run=bitwise, ok=ratio <= 1.0 and bitwise,
         ms=time_ms(lambda a, b_, c: decode_attention(a, b_, c, pos), sets),
         plain_ms=time_ms(lambda a, b_, c: decode_attention_plain(a, b_, c,
                                                                  pos), sets),
         library_ms=time_ms(library, sets),
+        device_ms=graph_ms(lambda a, b_, c: decode_attention(a, b_, c, pos),
+                           sets),
+        library_device_ms=graph_ms(library, sets),
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def decode_graph_case(gen, dtype, t=2560, positions=(0, 255, 2047, 2559)):
+    """One decode call with a device ``pos`` captured in a CUDA graph, then
+    replayed after writing each of ``positions`` into that tensor: the
+    grid must not depend on pos.  Each replay is held to the plain version
+    at its pos and must equal a call with the host int bit for bit."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    q = torch.randn((B, HQ, D), generator=gen, device="cuda", dtype=dtype)
+    k = _model_layout(gen, B, t, HKV, D, dtype)
+    v = _model_layout(gen, B, t, HKV, D, dtype)
+    pos = torch.zeros((), dtype=torch.int32, device="cuda")
+    decode_attention(q, k, v, pos)      # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, k, v, pos)
+    rows = []
+    for p in positions:
+        pos.fill_(p)
+        graph.replay()
+        ref = decode_attention_plain(*as_f32(q, k, v), p)
+        ratio = over_tol(out, ref, tolerance(ref, TOL[dtype]))
+        same = bool(torch.equal(out, decode_attention(q, k, v, p)))
+        rows.append(dict(pos=p, max_abs_err=max_err(out, ref),
+                         err_over_tol=ratio, equals_host_pos=same,
+                         ok=ratio <= 1.0 and same))
+    return dict(kernel="decode_attention", dtype=str(dtype).split(".")[1],
+                T=t, tolerance=f"{TOL[dtype]}", replays=rows,
+                ok=all(r["ok"] for r in rows))
 
 
 def phase_kernels():
@@ -240,7 +309,14 @@ def phase_kernels():
             for pos in sorted({0, 255, t * 4 // 5, t - 1}):
                 rows.append(decode_case(gen, dtype, t, pos))
                 emit("kernel_check", **rows[-1])
-    bad = [r for r in rows if not r["ok"]]
+        # deepseek-coder-33b's group of 7 query heads per KV head
+        rows.append(decode_case(gen, dtype, 2560, 2048, hq=56))
+        emit("kernel_check", **rows[-1])
+    graphs = [decode_graph_case(gen, dtype)
+              for dtype in (torch.bfloat16, torch.float32)]
+    for g in graphs:
+        emit("decode_graph", **g)
+    bad = [r for r in rows + graphs if not r["ok"]]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
     return rows
@@ -427,6 +503,7 @@ def _reset_launches():
         mod.launches = 0
         for v in getattr(mod, "variant_launches", {}):
             mod.variant_launches[v] = 0
+    _counters()["decode_attention"].layout_copies = 0
 
 
 def _no_launches():
@@ -443,6 +520,10 @@ def _check_launches(cfg, counts, where):
     if got != expect or min(counts.values()) == 0:
         raise SystemExit(f"{where}: kernel launches {got}, expected {expect} "
                          f"from step counts {counts}")
+    copies = _counters()["decode_attention"].layout_copies
+    if copies:
+        raise SystemExit(f"{where}: decode copied K or V {copies} times: the "
+                         "model's cache must be read in place")
     return got
 
 
@@ -541,7 +622,7 @@ def _family(name: str) -> str:
     low = name.lower()
     if "flash_fwd_" in name:
         return "flash_attention"
-    if "decode_split_kernel" in name or "decode_combine_kernel" in name:
+    if "decode_split_kernel" in name:
         return "decode_attention"
     if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
         return "gemm"
@@ -606,14 +687,19 @@ def phase_gemm_path(card: str) -> int:
     return got["preemptible_matmul/wgmma"]
 
 
-# the tensor-core kernels, whose compiled code phase 1 reports
-TC_KERNELS = ("gemm_resume_wgmma_kernel", "flash_fwd_wgmma_kernel")
+# the kernels whose compiled code phase 1 reports: name -> a pattern of
+# its mangled name (the decode kernel at bf16, D 128, groups up to 4)
+COMPILED_KERNELS = {
+    "gemm_resume_wgmma_kernel": "gemm_resume_wgmma_kernel",
+    "flash_fwd_wgmma_kernel": "flash_fwd_wgmma_kernel",
+    "decode_split_kernel<bf16,128,4>":
+        r"decode_split_kernelI\w*bfloat16Li128ELi4E"}
 
 
 def compiled_kernels(lib_path: Path):
-    """Per tensor-core kernel: its registers, stack and local memory per
-    thread (local > 0 means spills) and its count of HGMMA (wgmma) and
-    UTMALDG (TMA load) instructions, from ``cuobjdump`` on the built
+    """Per kernel: its registers, stack and local memory per thread (local
+    > 0 means spills) and its count of HGMMA (wgmma), UTMALDG (TMA load)
+    and LDGSTS (cp.async) instructions, from ``cuobjdump`` on the built
     library; None where the toolkit has no ``cuobjdump``."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
@@ -625,17 +711,17 @@ def compiled_kernels(lib_path: Path):
                               timeout=300).stdout
     res, sass = dump("-res-usage"), dump("-sass")
     out = {}
-    for name in TC_KERNELS:
-        m = re.search(rf"Function \S*{name}\S*:\s+REG:(\d+) STACK:(\d+) "
+    for name, pat in COMPILED_KERNELS.items():
+        m = re.search(rf"Function \S*{pat}\S*:\s+REG:(\d+) STACK:(\d+) "
                       rf"SHARED:\d+ LOCAL:(\d+)", res)
         code = "".join(part for part in sass.split("Function : ")[1:]
-                       if name in part.split(None, 1)[0])
+                       if re.search(pat, part.split(None, 1)[0]))
         out[name] = dict(
             registers=int(m.group(1)) if m else None,
             stack_bytes=int(m.group(2)) if m else None,
             local_bytes=int(m.group(3)) if m else None,
-            HGMMA=len(re.findall(r"\bHGMMA\.", code)),
-            UTMALDG=len(re.findall(r"\bUTMALDG\.", code)))
+            **{op: len(re.findall(rf"\b{op}\b", code))
+               for op in ("HGMMA", "UTMALDG", "LDGSTS")})
     return out
 
 
@@ -650,7 +736,8 @@ KERNELS = [
      dict(kernel="flash_attention", dtype="float32", S=2048, causal=True)),
     ("decode_attention", "decode_attention", "decode_attention.cu",
      "src/repro/kernels/decode_attention/kernel.py:91",
-     dict(kernel="decode_attention", dtype="bfloat16", T=2560, pos=2048)),
+     dict(kernel="decode_attention", dtype="bfloat16", Hq=HQ, T=2560,
+          pos=2048)),
     ("preemptible_matmul_wgmma_bf16", "preemptible_matmul/wgmma",
      "preemptible_matmul.cu",
      "src/repro/kernels/preemptible_matmul/kernel.py:59",
@@ -679,7 +766,9 @@ def kernels_line(rows, launches):
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=head["library_ms"], at=head_at))
+            library_ms=head["library_ms"], at=head_at,
+            **{key: head[key] for key in ("device_ms", "library_device_ms")
+               if key in head}))
     return kernels
 
 

@@ -32,10 +32,10 @@ _SIGNATURES = {
     # dtype, q, k, v, o, B, Hq, Hkv, S, T, D, strides, scale, causal, stream
     "prema_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S,
                               _F, _I, _P],
-    # dtype, q, k, v, o, o_part, m_part, l_part, B, Hq, Hkv, D, pos,
+    # dtype, q, k, v, o, part, tickets, pos_ptr, pos, B, Hq, Hkv, T, D,
     # strides, scale, stream
     "prema_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _S, _F, _P],
+                               _I, _I, _S, _F, _P],
     # q, k, v, o, B, Hq, Hkv, S, T, strides, scale, causal, stream
     "prema_flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _S,
                                     _F, _I, _P],

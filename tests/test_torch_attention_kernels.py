@@ -69,6 +69,22 @@ def test_decode_vs_pallas(case, dtype):
     _close(decode_attention(qt, kt, vt, pos), ref, TOL[dtype])
 
 
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_tensor_pos_matches_int_and_pallas(case, dtype):
+    """A 0-dim int32 ``pos`` (the kernel reads it from device memory) gives
+    the int path's result bit for bit and the Pallas kernel's within TOL."""
+    b, hq, hkv, t, d, pos = case
+    rng = np.random.default_rng(1)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.standard_normal(shape).astype(np.float32), dtype)
+        for shape in ((b, hq, d), (b, hkv, t, d), (b, hkv, t, d)))
+    out = decode_attention(qt, kt, vt, torch.tensor(pos, dtype=torch.int32))
+    assert torch.equal(out, decode_attention(qt, kt, vt, pos))
+    ref = jax_decode(qj, kj, vj, jnp.int32(pos), bt=256, interpret=True)
+    _close(out, ref, TOL[dtype])
+
+
 def test_flash_reads_strided_model_layout():
     """The model hands (B,S,H,D) tensors over as transposed views."""
     rng = np.random.default_rng(2)
@@ -118,6 +134,29 @@ def test_decode_rejects_pos_outside_cache():
             decode_attention(q[:, :, 0], k, v, pos)
 
 
+@pytest.mark.parametrize("dtype,shape,device", [
+    (torch.int64, (), "cpu"), (torch.float32, (), "cpu"),
+    (torch.int32, (1,), "cpu"), (torch.int32, (), "meta")],
+    ids=["int64", "float32", "one-dim", "other-device"])
+def test_decode_rejects_bad_pos_tensor(dtype, shape, device):
+    q, k, v = _inputs()
+    pos = torch.full(shape, 3, dtype=dtype, device=device)
+    with pytest.raises(ValueError):
+        decode_attention(q[:, :, 0], k, v, pos)
+
+
+def test_decode_tensor_pos_is_clamped_to_the_cache():
+    """No value of a tensor ``pos`` reads outside the cache: it is clamped
+    to [0, T), as the kernel clamps it on the card."""
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 2, 8, 16)).astype(
+        np.float32)) for _ in range(2))
+    for pos, clamped in ((-5, 0), (8, 7), (1000, 7)):
+        out = decode_attention(q, k, v, torch.tensor(pos, dtype=torch.int32))
+        assert torch.equal(out, decode_attention(q, k, v, clamped))
+
+
 # kernel against the plain version run in f32 on the same values, as
 # (atol, rtol).  A bf16 kernel that keeps P in f32 (decode) rounds its f32
 # result once: within half a bf16 ulp (2**-8 relative) plus f32 summation
@@ -157,3 +196,33 @@ def test_kernels_match_plain_on_card(dtype):
     for pos in (0, 63, 64, 299):
         check(decode_attention(q, k, v, pos),
               decode_attention_plain(q.float(), k.float(), v.float(), pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_graph_replays_device_pos_on_card(dtype):
+    """One decode call with a device ``pos``, captured in a CUDA graph and
+    replayed at several positions: the grid does not depend on pos."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    atol, rtol = CARD_TOL[dtype]
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    k, v = (rand(1, 300, 8, 128).transpose(1, 2) for _ in range(2))
+    q = rand(1, 32, 128)
+    pos = torch.zeros((), dtype=torch.int32, device="cuda")
+    decode_attention(q, k, v, pos)       # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, k, v, pos)
+    for p in (0, 63, 64, 299):
+        pos.fill_(p)
+        graph.replay()
+        torch.testing.assert_close(
+            out.float(),
+            decode_attention_plain(q.float(), k.float(), v.float(), p),
+            rtol=rtol, atol=atol)
+        assert torch.equal(out, decode_attention(q, k, v, p))
