@@ -2,37 +2,45 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases kernels,gemm   # a subset, no summary
+    python3 chip_smoke.py --phases kernels,gemm   # a subset, no kernels line
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit, torch, the kernel build
-   (``nvcc`` from the sources in this checkout), and per tensor-core
-   kernel and for decode its registers, stack, local memory and its
-   HGMMA, UTMALDG and LDGSTS (cp.async) instructions (``cuobjdump``);
+   (``nvcc`` from the sources in this checkout), and per kernel (both
+   tensor-core kernels, decode, and the two CUDA-core kernels) its
+   registers, stack, local memory and its HGMMA, UTMALDG, LDGSTS
+   (cp.async) and FFMA instructions (``cuobjdump``);
 2. each attention kernel against its plain PyTorch version on the card
    at the serving path's shapes (B 1, Hq 32, Hkv 8, D 128; bf16 and f32;
-   flash runs its wgmma kernel in bf16 and its CUDA-core kernel in f32;
-   decode also at deepseek-coder-33b's Hq 56), with kernel, plain and
-   library (SDPA, a yardstick the port never calls) times by CUDA events
-   and the card's bound; for decode also device times from CUDA-graph
-   replays, a bitwise run-to-run check, and one call with a device
-   ``pos`` captured in a CUDA graph and replayed at four positions;
+   flash runs its wgmma kernel in bf16 and its CUDA-core kernel in f32,
+   and the CUDA-core kernel also at D 80 and 64; decode also at
+   deepseek-coder-33b's Hq 56), with kernel, plain and library (SDPA, a
+   yardstick the port never calls) times by CUDA events and the card's
+   bound; for decode also device times from CUDA-graph replays, a bitwise
+   run-to-run check, and one call with a device ``pos`` captured in a
+   CUDA graph and replayed at four positions;
 3. the preemptible GEMM against its plain version run in float64, at the
    reference test's shapes and qwen3-8b's full-width down projection, over
    the whole K range and a middle range seeded from a non-zero
-   accumulator, f32 (CUDA-core kernel) and bf16 (wgmma kernel); timed at
-   full width beside cuBLAS;
+   accumulator, f32 (CUDA-core kernel) and bf16 (wgmma kernel); in f32
+   also launches that start off a multiple of 4 rows or read x through
+   strides, bitwise equal to one launch; timed at full width beside
+   cuBLAS;
 4. tiny qwen3-8b, olmo-1b and deepseek-coder-33b in f32 on the card
    against the same weights on the CPU;
 5. the serving path: the PREMA ``ServingEngine`` serving 8 requests on
    full-width qwen3-8b in bf16, checked against isolated runs, with the
    kernels' launch counts, per kernel variant, checked against the
    executor's step counts;
-6. the GEMM path: the preemptible-kernel demo at full width
-   (``repro_torch.examples.preemptible_kernel_demo --full``), one
-   uninterrupted launch and 48 preempted quanta that must agree bit for
-   bit, with its launch count (all on the wgmma kernel) checked.
+6. the serving path in f32, the JAX package's dtype: 3 requests on
+   full-width qwen3-8b (one prompt of 2048 tokens), checked as in 5, its
+   prefill all on the CUDA-core flash kernel;
+7. the GEMM path: the preemptible-kernel demo at full width
+   (``repro_torch.examples.preemptible_kernel_demo --full``) in bf16 and
+   in f32, each one uninterrupted launch and 48 preempted quanta that must
+   agree bit for bit, with its launch count (all on the dtype's kernel)
+   checked.
 
 Then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
 CUDA device, or without the repository beside it, it exits non-zero and
@@ -46,6 +54,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse
+import gc
 import json
 import re
 import shutil
@@ -183,18 +192,18 @@ def _model_layout(gen, b, t, h, d, dtype):
     return x.transpose(1, 2)
 
 
-def flash_case(gen, dtype, s, causal):
+def flash_case(gen, dtype, s, causal, d=D):
     from repro_torch.kernels.flash_attention import (bf16_tolerance,
                                                      flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention.ops import kernel_variant
     F = torch.nn.functional
-    q = _model_layout(gen, B, s, HQ, D, dtype)
-    k = _model_layout(gen, B, s, HKV, D, dtype)
-    v = _model_layout(gen, B, s, HKV, D, dtype)
+    q = _model_layout(gen, B, s, HQ, d, dtype)
+    k = _model_layout(gen, B, s, HKV, d, dtype)
+    v = _model_layout(gen, B, s, HKV, d, dtype)
     out = flash_attention(q, k, v, causal)
     ref = flash_attention_plain(*as_f32(q, k, v), causal)
-    variant = kernel_variant(dtype, D)
+    variant = kernel_variant(dtype, d)
     if variant == "wgmma":
         bound, tol_name = bf16_tolerance(q, k, v, causal), "bf16_tolerance"
     else:
@@ -202,16 +211,16 @@ def flash_case(gen, dtype, s, causal):
     ratio = over_tol(out, ref, bound)
     torch.cuda.synchronize()
     err = max_err(out, ref)
-    sets = [(q, k, v)] + [tuple(_model_layout(gen, B, s, h, D, dtype)
+    sets = [(q, k, v)] + [tuple(_model_layout(gen, B, s, h, d, dtype)
                                 for h in (HQ, HKV, HKV))
                           for _ in range(n_copies(nbytes(q, k, v)) - 1)]
     pairs = s * (s + 1) // 2 if causal else s * s
-    ops = 4 * B * HQ * D * pairs
+    ops = 4 * B * HQ * d * pairs
     moved = nbytes(q, k, v, out)
     t_ops, t_bytes = ops / PEAK_OPS[dtype], moved / HBM_BYTES_PER_S
     row = dict(
         kernel="flash_attention", variant=variant,
-        dtype=str(dtype).split(".")[1], S=s, T=s, causal=causal,
+        dtype=str(dtype).split(".")[1], D=d, S=s, T=s, causal=causal,
         max_abs_err=err, tolerance=tol_name, err_over_tol=ratio,
         ok=ratio <= 1.0,
         ms=time_ms(lambda a, b_, c: flash_attention(a, b_, c, causal), sets),
@@ -312,6 +321,14 @@ def phase_kernels():
         # deepseek-coder-33b's group of 7 query heads per KV head
         rows.append(decode_case(gen, dtype, 2560, 2048, hq=56))
         emit("kernel_check", **rows[-1])
+    # the CUDA-core flash kernel at other head widths: hubert-xlarge's 80
+    # in both types, and 64 in bf16
+    for dtype, d, s, causal in ((torch.bfloat16, 80, 2048, True),
+                                (torch.bfloat16, 80, 37, False),
+                                (torch.float32, 80, 2048, True),
+                                (torch.bfloat16, 64, 1024, True)):
+        rows.append(flash_case(gen, dtype, s, causal, d))
+        emit("kernel_check", **rows[-1])
     graphs = [decode_graph_case(gen, dtype)
               for dtype in (torch.bfloat16, torch.float32)]
     for g in graphs:
@@ -355,6 +372,8 @@ def gemm_case(gen, dtype, shape, timed):
             err_over_tol=float((diff / tol.clamp_min(1e-300)).max()),
             ok=bool((diff <= tol).all())))
     if not timed:
+        if dtype == torch.float32:
+            rows.append(gemm_split_case(x, y, ck.acc, rows[0]))
         return rows
     acc = ck.acc
     sets = [(x, y, acc)] + [inputs() + (torch.zeros_like(acc),) for _ in
@@ -379,6 +398,31 @@ def gemm_case(gen, dtype, shape, timed):
         ms_by_k_tiles={q: time_ms(lambda a, b, c, q=q: matmul_resumable(
             a, b, c, 0, q), sets) for q in (1, 2, 4, 8, 24)})
     return rows
+
+
+def gemm_split_case(x, y, acc, whole):
+    """The f32 kernel's launches whose first row is not a multiple of 4
+    (bk 1, 3, 100: the masked path, and x read through its transpose's
+    strides) in three launches: bitwise equal to one launch of bk 128."""
+    from repro_torch.kernels.preemptible_matmul import matmul_resumable
+    k = x.shape[1]
+    one = matmul_resumable(x, y, acc, 0, -(-k // 128))
+    xt = x.t().contiguous().t()
+    equal = {}
+    for bk in (1, 3, 100):
+        nk = -(-k // bk)
+        out = acc.clone()
+        cuts = sorted({0, nk // 3, (2 * nk) // 3, nk})
+        for i, (lo, hi) in enumerate(zip(cuts, cuts[1:])):
+            out = matmul_resumable(xt if i % 2 else x, y, out, lo, hi, bk=bk,
+                                   out=out)
+        equal[bk] = bool(torch.equal(out, one))
+    return dict(kernel="preemptible_matmul", variant="cuda_core",
+                dtype="float32", M=whole["M"], K=whole["K"], N=whole["N"],
+                check="3 launches at bk 1, 3, 100 (x strided in the 2nd) "
+                      "== 1 launch", bitwise_equal=equal,
+                max_abs_err=whole["max_abs_err"],
+                ok=all(equal.values()))
 
 
 def phase_gemm():
@@ -441,7 +485,10 @@ def phase_tiny():
 # --------------------------------------------------------------------------
 # phase 5: the serving path at full width
 # --------------------------------------------------------------------------
-def make_requests(cfg, hw, n: int, seed: int):
+def make_requests(cfg, hw, n: int, seed: int, first_len=None):
+    """``n`` requests from ``seed``; with ``first_len``, the first prompt
+    is replaced by one of that many tokens (from ``seed + 1``) and every
+    other draw stays as it was."""
     from repro_torch.core import arch_ops
     from repro_torch.core.predictor import network_time
     from repro_torch.serving import InferenceRequest
@@ -452,9 +499,12 @@ def make_requests(cfg, hw, n: int, seed: int):
     reqs = []
     for i in range(n):
         plen = int(rng.integers(64, 2049))
+        prompt = rng.integers(1, cfg.vocab_size, (1, plen)).astype(np.int32)
+        if i == 0 and first_len is not None:
+            prompt = np.random.default_rng(seed + 1).integers(
+                1, cfg.vocab_size, (1, first_len)).astype(np.int32)
         reqs.append(InferenceRequest(
-            rid=i, arch=cfg.name,
-            prompt=rng.integers(1, cfg.vocab_size, (1, plen)).astype(np.int32),
+            rid=i, arch=cfg.name, prompt=prompt,
             max_new_tokens=32, priority=int(rng.choice([1, 3, 9])),
             arrival=float(rng.uniform(0, window)),
             true_decode_len=int(rng.integers(8, 33))))
@@ -510,10 +560,14 @@ def _no_launches():
     return dict.fromkeys(_launches(), 0)
 
 
-def _check_launches(cfg, counts, where):
+def _check_launches(cfg, dtype, counts, where):
+    """Prefill launches all on the flash kernel of this dtype and head
+    width, none on the other; decode once per layer and step."""
+    from repro_torch.kernels.flash_attention.ops import kernel_variant
     attn_slots = sum(m == "attn" for m, _ in cfg.block_pattern)
+    flash = f"flash_attention/{kernel_variant(dtype, cfg.d_head)}"
     expect = {**_no_launches(),
-              "flash_attention/wgmma": counts["prefill"] * attn_slots,
+              flash: counts["prefill"] * attn_slots,
               "decode_attention": counts["decode"] * attn_slots
               * cfg.n_periods}
     got = _launches()
@@ -527,7 +581,7 @@ def _check_launches(cfg, counts, where):
     return got
 
 
-def serve_and_check(model, params, reqs, sync):
+def serve_and_check(model, params, dtype, reqs, sync):
     """Serve ``reqs`` through the PREMA engine, then rerun each request in
     isolation; checks completion, preemption, tokens and launch counts."""
     from repro_torch.serving import EngineConfig, ServingEngine
@@ -544,7 +598,7 @@ def serve_and_check(model, params, reqs, sync):
     results = engine.run(reqs)
     sync()
     wall = time.perf_counter() - t0
-    engine_launches = _check_launches(cfg, counts, "engine run")
+    engine_launches = _check_launches(cfg, dtype, counts, "engine run")
     engine_steps = dict(counts)
     if len(results) != len(reqs):
         raise SystemExit(f"{len(results)} of {len(reqs)} requests completed")
@@ -567,7 +621,7 @@ def serve_and_check(model, params, reqs, sync):
             raise SystemExit(f"request {r.rid}: non-finite logits")
     sync()
     iso_wall = time.perf_counter() - t0
-    iso_launches = _check_launches(cfg, counts, "isolated runs")
+    iso_launches = _check_launches(cfg, dtype, counts, "isolated runs")
     return dict(
         engine=engine, executor=executor, wall_s=wall, isolated_wall_s=iso_wall,
         generated_tokens=sum(int(r.tokens.shape[1]) for r in results),
@@ -580,42 +634,62 @@ def serve_and_check(model, params, reqs, sync):
                     isolated_launches=iso_launches))
 
 
-def phase_serve(card: str, n_requests: int = 8, seed: int = 0):
+def phase_serve(card: str, dtype=torch.bfloat16, n_requests: int = 8,
+                seed: int = 0, first_len=None):
+    """The PREMA engine serving ``n_requests`` on full-width qwen3-8b with
+    random weights of ``dtype``: checked against isolated runs, with launch
+    counts, wall time and one request's device profile."""
     from repro_torch.hw import H100
     from repro_torch.models import get_model
 
     torch.use_deterministic_algorithms(True)
     # every kernel writes all of its outputs: no need to fill torch.empty
     torch.utils.deterministic.fill_uninitialized_memory = False
+    name = str(dtype).split(".")[1]
     model = get_model("qwen3-8b")
     cfg = model.cfg
     t0 = time.perf_counter()
     params = model.init_params(
         generator=torch.Generator(device="cuda").manual_seed(seed),
-        dtype=torch.bfloat16, device="cuda")
+        dtype=dtype, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    reqs, window = make_requests(cfg, H100, n_requests, seed)
+    reqs, window = make_requests(cfg, H100, n_requests, seed, first_len)
     torch.cuda.reset_peak_memory_stats()
-    run = serve_and_check(model, params, reqs, torch.cuda.synchronize)
-    emit("serve", model=cfg.name, dtype="bfloat16", n_layers=cfg.n_layers,
+    run = serve_and_check(model, params, dtype, reqs, torch.cuda.synchronize)
+    emit("serve", model=cfg.name, dtype=name, n_layers=cfg.n_layers,
          d_model=cfg.d_model,
          prompt_lens=[int(q.prompt.shape[1]) for q in reqs],
          arrival_window_s=window, param_init_s=init_s,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          **run["checks"])
-    emit("serve_virtual_clock", note="engine summary(): virtual clock of "
-         "the H100 hardware model, not measured time",
+    emit("serve_virtual_clock", dtype=name, note="engine summary(): virtual "
+         "clock of the H100 hardware model, not measured time",
          **{k: float(v) for k, v in run["engine"].summary().items()})
-    emit("serve_wall", card=card, wall_s=run["wall_s"],
+    emit("serve_wall", card=card, dtype=name, wall_s=run["wall_s"],
          generated_tokens=run["generated_tokens"],
          tokens_per_s=run["generated_tokens"] / run["wall_s"],
          isolated_runs_wall_s=run["isolated_wall_s"])
     longest = max(reqs, key=lambda q: q.prompt.shape[1])
-    emit("serve_profile", card=card, prompt_len=int(longest.prompt.shape[1]),
-         **profile_request(run["executor"], longest.prompt,
-                           longest.max_new_tokens))
+    prof = profile_request(run["executor"], longest.prompt,
+                           longest.max_new_tokens)
+    emit("serve_profile", card=card, dtype=name,
+         prompt_len=int(longest.prompt.shape[1]), **prof)
+    pre = prof["prefill"]
+    flash = pre["family_ms"]["flash_attention"]
+    emit("serve_prefill", card=card, dtype=name, wall_s=run["wall_s"],
+         prompt_len=int(longest.prompt.shape[1]),
+         prefill_wall_ms=pre["wall_ms"], prefill_device_ms=pre["device_ms"],
+         flash_ms=flash, flash_share_of_device=flash / pre["device_ms"])
     return run["checks"]["engine_launches"]
+
+
+def phase_serve_f32(card: str):
+    """The serving path in f32, the JAX package's dtype: 3 requests, the
+    first with a 2048-token prompt.  The bf16 model is gone by now."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return phase_serve(card, torch.float32, n_requests=3, first_len=2048)
 
 
 def _family(name: str) -> str:
@@ -669,38 +743,50 @@ def profile_request(executor, prompt, max_new_tokens: int) -> dict:
 # --------------------------------------------------------------------------
 # phase 6: the GEMM path at full width
 # --------------------------------------------------------------------------
-def phase_gemm_path(card: str) -> int:
-    """The demo's ``--full`` run; it raises unless the preempted and
+def phase_gemm_path(card: str) -> dict:
+    """The demo's ``--full`` run in bf16 (the wgmma kernel) and in f32 (the
+    reference demo's dtype, the CUDA-core kernel), each with its launch
+    counts read on its own; the demo raises unless the preempted and
     uninterrupted accumulators are bitwise equal and within tolerance."""
     from repro_torch.examples import preemptible_kernel_demo as demo
-    _reset_launches()
-    rep = demo.main(["--full", "--seed", "0"])
-    torch.cuda.synchronize()
-    got = _launches()
-    expect = {**_no_launches(),
-              "preemptible_matmul/wgmma": 1 + rep["n_quanta"]}
-    if got != expect or rep["n_quanta"] != 48:
-        raise SystemExit(f"GEMM path: kernel launches {got}, expected "
-                         f"{expect} from 1 + {rep['n_quanta']} launches "
-                         "(48 quanta)")
-    emit("gemm_path", card=card, launches=got, **rep)
-    return got["preemptible_matmul/wgmma"]
+    from repro_torch.kernels.preemptible_matmul.ops import kernel_variant
+    total = {}
+    for dtype in ("bfloat16", "float32"):
+        counter = "preemptible_matmul/" + kernel_variant(
+            getattr(torch, dtype), 128)
+        _reset_launches()
+        rep = demo.main(["--full", "--dtype", dtype, "--seed", "0"])
+        torch.cuda.synchronize()
+        got = _launches()
+        expect = {**_no_launches(), counter: 1 + rep["n_quanta"]}
+        if got != expect or rep["n_quanta"] != 48:
+            raise SystemExit(f"GEMM path ({dtype}): kernel launches {got}, "
+                             f"expected {expect} from 1 + {rep['n_quanta']} "
+                             "launches (48 quanta)")
+        emit("gemm_path", card=card, launches=got, **rep)
+        total[counter] = got[counter]
+    return total
 
 
 # the kernels whose compiled code phase 1 reports: name -> a pattern of
-# its mangled name (the decode kernel at bf16, D 128, groups up to 4)
+# its mangled name (the decode kernel at bf16, D 128, groups up to 4; the
+# CUDA-core GEMM on its 16-byte path, and flash at f32, D 128)
 COMPILED_KERNELS = {
     "gemm_resume_wgmma_kernel": "gemm_resume_wgmma_kernel",
     "flash_fwd_wgmma_kernel": "flash_fwd_wgmma_kernel",
     "decode_split_kernel<bf16,128,4>":
-        r"decode_split_kernelI\w*bfloat16Li128ELi4E"}
+        r"decode_split_kernelI\w*bfloat16Li128ELi4E",
+    "gemm_resume_simt_kernel<vec>": r"gemm_resume_simt_kernelILb1E",
+    "gemm_resume_simt_kernel<any strides>": r"gemm_resume_simt_kernelILb0E",
+    "flash_fwd_simt_kernel<f32,128>": r"flash_fwd_simt_kernelIfLi128E"}
 
 
 def compiled_kernels(lib_path: Path):
     """Per kernel: its registers, stack and local memory per thread (local
-    > 0 means spills) and its count of HGMMA (wgmma), UTMALDG (TMA load)
-    and LDGSTS (cp.async) instructions, from ``cuobjdump`` on the built
-    library; None where the toolkit has no ``cuobjdump``."""
+    > 0 means spills) and its count of HGMMA (wgmma), UTMALDG (TMA load),
+    LDGSTS (cp.async) and FFMA (f32 fused multiply-add) instructions, from
+    ``cuobjdump`` on the built library; None where the toolkit has no
+    ``cuobjdump``."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
         return None
@@ -721,19 +807,21 @@ def compiled_kernels(lib_path: Path):
             stack_bytes=int(m.group(2)) if m else None,
             local_bytes=int(m.group(3)) if m else None,
             **{op: len(re.findall(rf"\b{op}\b", code))
-               for op in ("HGMMA", "UTMALDG", "LDGSTS")})
+               for op in ("HGMMA", "UTMALDG", "LDGSTS", "FFMA")})
     return out
 
 
-PHASES = ("kernels", "gemm", "tiny", "serve", "path")
+PHASES = ("kernels", "gemm", "tiny", "serve", "serve_f32", "path")
 # the kernels line: name, launch counter, source, TPU kernel, headline row
 KERNELS = [
     ("flash_attention_wgmma_bf16", "flash_attention/wgmma",
      "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:90",
-     dict(kernel="flash_attention", dtype="bfloat16", S=2048, causal=True)),
+     dict(kernel="flash_attention", dtype="bfloat16", D=D, S=2048,
+          causal=True)),
     ("flash_attention_cuda_core_f32", "flash_attention/cuda_core",
      "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:90",
-     dict(kernel="flash_attention", dtype="float32", S=2048, causal=True)),
+     dict(kernel="flash_attention", dtype="float32", D=D, S=2048,
+          causal=True)),
     ("decode_attention", "decode_attention", "decode_attention.cu",
      "src/repro/kernels/decode_attention/kernel.py:91",
      dict(kernel="decode_attention", dtype="bfloat16", Hq=HQ, T=2560,
@@ -758,7 +846,7 @@ def kernels_line(rows, launches):
         mine = [r for r in rows if r["kernel"] == head_at["kernel"]
                 and (not variant or r["variant"] == variant)]
         head = next(r for r in mine
-                    if all(r[k] == v for k, v in head_at.items()))
+                    if all(r.get(k) == v for k, v in head_at.items()))
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}", replaces=replaces,
@@ -806,11 +894,15 @@ def main(argv=None) -> int:
         rows += phase_gemm()
     if "tiny" in phases:
         phase_tiny()
+    # each path's launches are counted from 0 and read after it; the
+    # kernels line adds up what the paths launched
     launches = _no_launches()
-    if "serve" in phases:
-        launches.update(phase_serve(card))
-    if "path" in phases:
-        launches["preemptible_matmul/wgmma"] = phase_gemm_path(card)
+    paths = [("serve", phase_serve), ("serve_f32", phase_serve_f32),
+             ("path", phase_gemm_path)]
+    for phase, run in paths:
+        if phase in phases:
+            for counter, n in run(card).items():
+                launches[counter] += n
 
     print(card)
     if set(phases) == set(PHASES):

@@ -7,7 +7,6 @@ from typing import Sequence
 
 import torch
 
-HEAD_DIMS = (8, 16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -36,10 +35,11 @@ def tma_operand(t: torch.Tensor) -> torch.Tensor:
 
 
 def check_attention_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           q_ndim: int) -> None:
+                           q_ndim: int, head_dims: Sequence[int]) -> None:
     """Raise on inputs the kernels do not take: mixed devices or dtypes, a
-    dtype other than f32/bf16, a head dim outside ``HEAD_DIMS``, or query
-    heads that are not a multiple of the KV heads."""
+    dtype other than f32/bf16, a head dim outside ``head_dims`` (the widths
+    the wrapper's kernels are built for), or query heads that are not a
+    multiple of the KV heads."""
     if q.dim() != q_ndim or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
@@ -49,8 +49,8 @@ def check_attention_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"dtypes must be one of f32/bf16 and equal, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     d = q.shape[-1]
-    if d not in HEAD_DIMS or k.shape[-1] != d:
-        raise ValueError(f"head dim must be one of {HEAD_DIMS}, got "
+    if d not in head_dims or k.shape[-1] != d:
+        raise ValueError(f"head dim must be one of {tuple(head_dims)}, got "
                          f"q {d}, k {k.shape[-1]}")
     if q.shape[0] != k.shape[0]:
         raise ValueError("q and k must have the same batch size")

@@ -79,21 +79,6 @@ __device__ __forceinline__ int live_pos(const DecodeParams& p) {
   return min(max(pos, 0), p.T - 1);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // 16 bytes of shared memory as f32 values
 __device__ __forceinline__ void load16(const float* src, float (&x)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(src);

@@ -36,11 +36,22 @@
 //   four register files and cap every thread at 168 registers, fewer than
 //   the two accumulators (S and O, 64 each), the P fragments and the
 //   addressing want; with 8 warps a thread may hold 255.
-// * f32, and bf16 at other head widths, flash_fwd_simt_kernel: the f32
-//   CUDA cores.  A block owns 64 query rows of one head, loops over 32-key
-//   tiles widened to f32 in shared memory (rows padded by one float against
-//   bank conflicts), and keeps a 4 x 4 score micro-tile and a 4 x D/8 slice
-//   of the accumulator per thread.
+// * f32, and bf16 at other head widths (8, 16, 32, 64, 80),
+//   flash_fwd_simt_kernel: the f32 CUDA cores, one fmaf per product (TF32
+//   would miss the f32 tolerance), so the bound is the 67 TFLOP/s of f32
+//   FMA and the design feeds the FMA units.  A block of 8 warps owns 128
+//   query rows of one head, in f32 at D = 128 one per SM with 227 KB of
+//   shared memory.  Q is staged once; K and V tiles of 64 keys are staged
+//   raw (bf16 widened when read) by 16-byte cp.async into two slots, the
+//   next tile in flight while the current one is used, with one barrier
+//   per tile.  Each thread holds an 8 x 4 tile of scores (8 rows, 4 keys)
+//   and an 8 x 8 tile of the accumulator (8 rows, 8 columns at D = 128),
+//   both fed by 16-byte shared reads.  A warp's 16 rows never need another
+//   warp: row maxima and sums are shuffles within a half-warp, and P goes
+//   through the warp's own rows of shared memory behind a __syncwarp.  The
+//   f32 Q alone takes 64 KB at 128 rows, so more rows per SM, and with
+//   them more warps, do not fit beside double-buffered 64-key K and V
+//   tiles; each warp instead keeps 32 independent sums in flight.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -60,162 +71,294 @@ struct FlashParams {
 };
 
 // --------------------------------------------------------------------------
-// f32 (any head width) and bf16 at head widths other than 128: CUDA cores
+// f32, and bf16 at head widths other than 128: the CUDA cores
 // --------------------------------------------------------------------------
 namespace simt {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BT = 32;        // keys per tile
-constexpr int NT = 128;       // threads: 16 row groups x 8 column lanes
-constexpr int RQ = BQ / 16;   // query rows per thread
-constexpr int CK = BT / 8;    // score columns per thread
+constexpr int BQ = 128;       // query rows per block: 8 warps of 16
+constexpr int BT = 64;        // keys per tile
+constexpr int NT = 256;
+constexpr int RQ = 8;         // query rows per thread
+constexpr int CK = BT / 16;   // keys per thread in S: c, c + 16, ...
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (BQ * (D + 1) + BT * (D + 1) + BT * D + BQ * (BT + 1));
+// One block's shared memory.  Q: BQ rows of D elements of T, 16 bytes more
+// after every 8 rows; K: 2 slots of BT rows of D + 16 bytes; V: 2 slots of
+// BT rows of D; P (f32): BQ rows of BT, 16 bytes more after every 8 rows.
+// The 16 bytes after 8 rows put the two 8-row groups of a warp, which read
+// one row each at the same column, into different banks; K's padded rows
+// put the 16 keys that a half-warp reads into as few passes as 16-byte
+// reads allow.
+template <typename T, int D>
+struct Smem {
+  static constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte copy
+  static constexpr int KP = D + VEC;           // K row pitch
+  static constexpr size_t Q = (BQ * D + BQ / 8 * VEC) * sizeof(T);
+  static constexpr size_t K = BT * KP * sizeof(T);
+  static constexpr size_t V = BT * D * sizeof(T);
+  static constexpr size_t P = (BQ * BT + BQ / 8 * 4) * sizeof(float);
+  static constexpr size_t BYTES = Q + 2 * (K + V) + P;
+  __device__ static int q_row(int r) { return r * D + (r >> 3) * VEC; }
+  __device__ static int p_row(int r) { return r * BT + (r >> 3) * 4; }
+};
+
+// 4 consecutive elements of shared memory (16 bytes of f32, 8 of bf16)
+// widened to f32, and 4 f32 values stored as 4 elements
+__device__ __forceinline__ void ld4(const float* s, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(s);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
-    const FlashParams p) {
-  constexpr int DC = D / 8;            // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [BQ][D + 1]
-  float* Ks = Qs + BQ * (D + 1);       // [BT][D + 1]
-  float* Vs = Ks + BT * (D + 1);       // [BT][D]
-  float* Ps = Vs + BT * D;             // [BQ][BT + 1]
+__device__ __forceinline__ void ld4(const __nv_bfloat16* s, float (&x)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(s);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  x[0] = a.x;
+  x[1] = a.y;
+  x[2] = b.x;
+  x[3] = b.y;
+}
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
+__device__ __forceinline__ void st4(float* d, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(d) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ void st4(__nv_bfloat16* d, const float (&x)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
+  *reinterpret_cast<uint2*>(d) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                 *reinterpret_cast<const uint32_t*>(&b));
+}
+
+// Warp w owns query rows [16w, 16w + 16) of the block; lane l takes the 8
+// rows r0 = 16w + 8(l / 16) .. r0 + 7 with c = l % 16.  In S = Q K^T it
+// holds keys c + 16j (j < 4) of each row, so a row's maximum and sum are
+// reductions over the 16 lanes of a half-warp and P never leaves the warp;
+// in O += P V it holds columns 4(c + 16g) .. + 3 (g < DG).
+template <typename T, int D>
+__global__ void __launch_bounds__(NT, 1) flash_fwd_simt_kernel(
+    const FlashParams p) {
+  using S = Smem<T, D>;
+  constexpr int VEC = S::VEC, KP = S::KP;
+  constexpr int CH = D / VEC;               // 16-byte copies per row
+  constexpr int DG = (D / 4 + 15) / 16;     // 4-column groups of O per lane
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = reinterpret_cast<T*>(smem + S::Q);
+  T* vs = reinterpret_cast<T*>(smem + S::Q + 2 * S::K);
+  float* ps = reinterpret_cast<float*>(smem + S::Q + 2 * (S::K + S::V));
+
+  const int h = blockIdx.x, b = blockIdx.z, hk = h / p.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
   const T* q = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[1];
   const T* k = static_cast<const T*>(p.k) + b * p.sk[0] + hk * p.sk[1];
   const T* v = static_cast<const T*>(p.v) + b * p.sv[0] + hk * p.sv[1];
   T* o = static_cast<T*>(p.o) + b * p.so[0] + h * p.so[1];
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int tid = threadIdx.x, lane = tid % 32, c = lane % 16;
+  const int r0 = (tid / 32) * 16 + (lane / 16) * 8;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, d = i % D, row = q0 + r;
-    Qs[r * (D + 1) + d] =
-        row < p.s_len ? to_float(q[row * p.sq[2] + d * p.sq[3]]) : 0.f;
+  int n_tiles = (p.t_len + BT - 1) / BT;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BT + 1);
+
+  // K and V rows of tile `it` into slot it % 2, by 16-byte cp.async,
+  // zeros past t_len
+  auto load_kv = [&](int it) {
+    T* kd = ks + (it % 2) * BT * KP;
+    T* vd = vs + (it % 2) * BT * D;
+#pragma unroll
+    for (int i = 0; i < (BT * CH + NT - 1) / NT; ++i) {
+      const int e = tid + NT * i;
+      if (BT * CH % NT != 0 && e >= BT * CH) break;
+      const int r = e / CH, cc = (e % CH) * VEC, t = it * BT + r;
+      const bool live = t < p.t_len;
+      cp_async16(kd + r * KP + cc, live ? k + t * p.sk[2] + cc : k,
+                 live ? 16 : 0);
+      cp_async16(vd + r * D + cc, live ? v + t * p.sv[2] + cc : v,
+                 live ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < (BQ * CH + NT - 1) / NT; ++i) {
+    const int e = tid + NT * i;
+    if (BQ * CH % NT != 0 && e >= BQ * CH) break;
+    const int r = e / CH, cc = (e % CH) * VEC, row = q0 + r;
+    const bool live = row < p.s_len;
+    cp_async16(qs + S::q_row(r) + cc, live ? q + row * p.sq[2] + cc : q,
+               live ? 16 : 0);
   }
+  load_kv(0);
+  cp_async_commit();
 
-  float m[RQ], l[RQ], acc[RQ][DC];
+  const T* qr = qs + S::q_row(r0);          // this lane's rows, D apart
+  float* pr = ps + S::p_row(r0);            // and its rows of P, BT apart
+  const float scale = p.scale * kLog2e;     // scores in log2 units
+  float m[RQ], l[RQ], acc[RQ][DG][4];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    for (int g = 0; g < DG; ++g)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[i][g][x] = 0.f;
   }
 
-  int n_tiles = (p.t_len + BT - 1) / BT;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BT + 1);
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // Q is loaded; the previous tile's Ks/Vs/Ps are used
-    for (int i = tid; i < BT * D; i += NT) {
-      const int r = i / D, d = i % D, t = k0 + r;
-      const bool live = t < p.t_len;
-      Ks[r * (D + 1) + d] = live ? to_float(k[t * p.sk[2] + d * p.sk[3]]) : 0.f;
-      Vs[r * D + d] = live ? to_float(v[t * p.sv[2] + d * p.sv[3]]) : 0.f;
-    }
+  for (int it = 0; it < n_tiles; ++it) {
+    // one barrier per tile: tile it has landed for every thread, and every
+    // thread is done with tile it - 1, whose slot now takes tile it + 1
+    cp_async_wait<0>();
     __syncthreads();
+    if (it + 1 < n_tiles) load_kv(it + 1);
+    cp_async_commit();
+    const T* kt = ks + (it % 2) * BT * KP;
+    const T* vt = vs + (it % 2) * BT * D;
 
+    // S = Q K^T, each score summed over d in ascending order
     float s[RQ][CK];
 #pragma unroll
     for (int i = 0; i < RQ; ++i)
 #pragma unroll
       for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[RQ], kv[CK];
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float kv[CK][4];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
+      for (int j = 0; j < CK; ++j) ld4(kt + (c + 16 * j) * KP + d, kv[j]);
 #pragma unroll
-      for (int j = 0; j < CK; ++j) kv[j] = Ks[(tx + 8 * j) * (D + 1) + d];
+      for (int i = 0; i < RQ; ++i) {
+        float qv[4];
+        ld4(qr + i * D + d, qv);
 #pragma unroll
-      for (int i = 0; i < RQ; ++i)
+        for (int j = 0; j < CK; ++j)
 #pragma unroll
-        for (int j = 0; j < CK; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int e = 0; e < 4; ++e) s[i][j] = fmaf(qv[e], kv[j][e], s[i][j]);
+      }
     }
 
-    // online softmax; the 8 lanes tx = 0..7 of a row are consecutive lanes
+    // online softmax; masks only where the tile needs them
+    const int k0 = it * BT;
+    const bool masked =
+        k0 + BT > p.t_len || (p.causal && k0 + BT - 1 > q0 + r0);
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
-      const int r = ty + 16 * i, row = q0 + r;
+      const int row = q0 + r0 + i;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < CK; ++j) {
-        const int col = k0 + tx + 8 * j;
-        const bool live = col < p.t_len && (!p.causal || col <= row);
-        s[i][j] = live ? s[i][j] * p.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+        float x = s[i][j] * scale;
+        if (masked) {
+          const int key = k0 + c + 16 * j;
+          if (key >= p.t_len || (p.causal && key > row)) x = kNegInf;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
       }
-      mx = group_max<8>(mx);
+      mx = group_max<16>(mx);
       const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
+      const float alpha = exp2f(m[i] - m_new);
+      m[i] = m_new;
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < CK; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        Ps[r * (BT + 1) + tx + 8 * j] = e;
+        const float e = exp2f(s[i][j] - m_new);
+        pr[i * BT + c + 16 * j] = e;
         rs += e;
       }
-      rs = group_sum<8>(rs);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_new;
+      l[i] = alpha * l[i] + rs;   // this lane's keys; lanes summed at the end
 #pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+      for (int g = 0; g < DG; ++g)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[i][g][x] *= alpha;
     }
-    __syncthreads();
+    __syncwarp();   // the warp's rows of P are written
 
-#pragma unroll 4
-    for (int t = 0; t < BT; ++t) {
-      float pv[RQ];
+    // O += P V, each output summed over the keys in ascending order
+#pragma unroll 2
+    for (int t = 0; t < BT; t += 4) {
+      float pv[RQ][4];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) pv[i] = Ps[(ty + 16 * i) * (BT + 1) + t];
+      for (int i = 0; i < RQ; ++i) ld4(pr + i * BT + t, pv[i]);
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = Vs[t * D + tx + 8 * c];
+      for (int e = 0; e < 4; ++e) {
+        float vv[DG][4];
 #pragma unroll
-        for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+        for (int g = 0; g < DG; ++g) {
+          const int col = 4 * (c + 16 * g);
+          if (D % 64 == 0 || col < D) {
+            ld4(vt + (t + e) * D + col, vv[g]);
+          } else {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) vv[g][x] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+#pragma unroll
+          for (int g = 0; g < DG; ++g)
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              acc[i][g][x] = fmaf(pv[i][e], vv[g][x], acc[i][g][x]);
       }
     }
   }
 
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
-    const int row = q0 + ty + 16 * i;
+    const float denom = fmaxf(group_sum<16>(l[i]), 1e-30f);
+    const int row = q0 + r0 + i;
     if (row >= p.s_len) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      o[row * p.so[2] + (tx + 8 * c) * p.so[3]] = from_float<T>(acc[i][c] / denom);
+    for (int g = 0; g < DG; ++g) {
+      const int col = 4 * (c + 16 * g);
+      if (D % 64 != 0 && col >= D) continue;
+      float out[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) out[x] = acc[i][g][x] / denom;
+      st4(o + row * p.so[2] + col, out);
+    }
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const FlashParams& p, int B, int Hq, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = Smem<T, D>::BYTES;
+  static_assert(smem <= 232448, "more shared memory than a block may use");
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_simt_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.s_len + BQ - 1) / BQ, Hq, B);
+  const dim3 grid(Hq, (p.s_len + BQ - 1) / BQ, B);
   flash_fwd_simt_kernel<T, D><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// rows of 16-byte pieces: unit innermost stride, the other strides and the
+// base multiples of 16 bytes
+template <typename T>
+bool rows16(const void* base, const long long* s) {
+  constexpr int VEC = 16 / sizeof(T);
+  return s[3] == 1 && s[0] % VEC == 0 && s[1] % VEC == 0 && s[2] % VEC == 0 &&
+         reinterpret_cast<uintptr_t>(base) % 16 == 0;
 }
 
 template <typename T>
 cudaError_t launch_d(const FlashParams& p, int B, int Hq, int D,
                      cudaStream_t stream) {
+  if (!rows16<T>(p.q, p.sq) || !rows16<T>(p.k, p.sk) ||
+      !rows16<T>(p.v, p.sv) || !rows16<T>(p.o, p.so))
+    return cudaErrorInvalidValue;
   switch (D) {
     case 8: return launch<T, 8>(p, B, Hq, stream);
     case 16: return launch<T, 16>(p, B, Hq, stream);
     case 32: return launch<T, 32>(p, B, Hq, stream);
     case 64: return launch<T, 64>(p, B, Hq, stream);
+    case 80: return launch<T, 80>(p, B, Hq, stream);
     case 128: return launch<T, 128>(p, B, Hq, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -491,7 +634,9 @@ FlashParams make_params(const void* q, const void* k, const void* v, void* o,
 // with arbitrary strides: `strides` holds 16 values, (b, h, s, d) for q, k,
 // v and o in that order.  Launches on `stream`; returns cudaGetLastError().
 //
-// The CUDA-core kernel: f32 or bf16, D in {8, 16, 32, 64, 128}.
+// The CUDA-core kernel: f32 or bf16, D in {8, 16, 32, 64, 80, 128}, unit
+// innermost strides, the other strides multiples of 16 bytes and 16-byte
+// aligned bases (its rows are read and written in 16-byte pieces).
 extern "C" int prema_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* o, int B, int Hq,
                                      int Hkv, int S, int T, int D,

@@ -36,10 +36,22 @@
 //   bf16 bk that is not a multiple of 64).  Ragged M, N and K come from
 //   TMA's zero fill past each map's extent; stores are masked.
 // * f32, gemm_resume_simt_kernel: the f32 CUDA cores, fmaf per product in
-//   ascending k (TF32 products would miss the f32 tolerance).  8 x 8
-//   registers per thread, 16-row tiles staged through shared memory with
-//   the next tile prefetched into registers; ragged edges masked; x and y
-//   read through any strides.
+//   ascending k (TF32 products would miss the f32 tolerance), so the bound
+//   is the 67 TFLOP/s of f32 FMA.  One block of 256 threads owns a 128 x
+//   128 tile, each thread an 8 x 8 micro-tile of registers fed by 16-byte
+//   shared reads (8 of x along k and 8 of y for every 4 x 64 products).
+//   Stages of 64 reduction rows (x row-major, rows padded by 16 bytes; y
+//   row-major) are filled by cp.async into a ring of 3, two in flight
+//   while one is used, with one barrier per stage: deep stages, because
+//   with one block of 8 warps per SM (200 KB of shared memory, up to 255
+//   registers, so no spills) every barrier stalls the whole SM.  The 512
+//   tiles of qwen3-8b's 2048 x 4096 output take 3.88 waves of 132 SMs.  x
+//   and y with unit column strides and 16-byte aligned rows, in launches
+//   that start on a multiple of 4 rows, are copied 16 bytes at a time,
+//   zeros filled past M, N and hi; any other launch copies one element at
+//   a time through the strides into the same ring.  A zero-filled row adds
+//   fmaf(0, 0, a) == a, so only an accumulator of -0 can differ between
+//   splits of the range (it may leave as +0).
 #include <cuda.h>
 
 #include "common.cuh"
@@ -64,106 +76,209 @@ struct GemmParams {
 // --------------------------------------------------------------------------
 namespace simt {
 
-constexpr int BM = 128;       // output rows per block
-constexpr int BN = 128;       // output columns per block
-constexpr int BK = 16;        // reduction rows per shared tile
-constexpr int NT = 256;       // threads: 16 x 16, each an 8 x 8 micro-tile
-constexpr int PAD = 4;        // keeps float4 alignment, spreads the stores
-constexpr int LX = BM * BK / NT;  // x elements each thread stages per tile
-constexpr int LY = BK * BN / NT;  // y elements each thread stages per tile
-static_assert(BM == BN && BM == 128 && NT == 256, "sub() assumes this tiling");
+constexpr int TX = 16;        // threads along the columns of a block
+constexpr int TY = 16;        // threads along the rows
+constexpr int TN = 8;         // a thread's columns, in groups of 4
+constexpr int NT = TX * TY;
+constexpr int BM = 8 * TY;    // output rows per block: 8 per thread
+constexpr int BN = TN * TX;   // output columns per block
+constexpr int BK = 64;        // reduction rows per stage
+constexpr int STAGES = 3;     // stages in the shared-memory ring
+constexpr int XP = BK + 4;    // x row pitch: neighbouring rows in other banks
+constexpr int X_FLOATS = BM * XP;   // x stage, row-major [BM][XP]
+constexpr int Y_FLOATS = BK * BN;   // y stage, row-major [BK][BN]
+constexpr size_t SMEM_BYTES =
+    STAGES * (X_FLOATS + Y_FLOATS) * sizeof(float);
+static_assert(TN % 4 == 0 && BM * BK % (4 * NT) == 0 &&
+              BK * BN % (4 * NT) == 0, "whole 16-byte copies per thread");
+static_assert(BK % 4 == 0, "x is staged and read in 16-byte pieces of 4 k");
 
-// Row (or column) of micro-tile entry i for thread coordinate t: 4 rows at
-// 4t and 4 at 64 + 4t, so both halves are read as aligned float4s.
-__device__ __forceinline__ int sub(int t, int i) {
-  return (i < 4 ? 0 : 60) + 4 * t + i;
-}
-
-__global__ void __launch_bounds__(NT) gemm_resume_simt_kernel(
-    const GemmParams p) {
-  __shared__ __align__(16) float Xs[BK][BM + PAD];  // x tile, transposed
-  __shared__ __align__(16) float Ys[BK][BN + PAD];
+// Stage reduction rows [k0, k0 + BK) of x (rows row0..) and y (columns
+// col0..) by cp.async, zeros past m, n and hi.  VEC: 16-byte copies, for
+// unit column strides, 16-byte aligned rows and k0 a multiple of 4; else
+// one 4-byte copy per element, through any strides.
+template <bool VEC>
+__device__ __forceinline__ void load_stage(const GemmParams& p, float* xs,
+                                           float* ys, int k0, int row0,
+                                           int col0) {
   const float* x = static_cast<const float*>(p.x);
   const float* y = static_cast<const float*>(p.y);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+  if constexpr (VEC) {
+#pragma unroll
+    for (int i = 0; i < BM * BK / 4 / NT; ++i) {
+      const int e = tid + NT * i, r = e / (BK / 4), c = 4 * (e % (BK / 4));
+      const int gr = row0 + r, k = k0 + c;
+      const int live = gr < p.m ? min(max(p.hi - k, 0), 4) : 0;
+      cp_async16(xs + r * XP + c, live ? x + gr * p.sx[0] + k : x, 4 * live);
+    }
+#pragma unroll
+    for (int i = 0; i < BK * BN / 4 / NT; ++i) {
+      const int e = tid + NT * i, r = e / (BN / 4), c = 4 * (e % (BN / 4));
+      const int k = k0 + r, gc = col0 + c;
+      const int live = k < p.hi ? min(max(p.n - gc, 0), 4) : 0;
+      cp_async16(ys + r * BN + c, live ? y + k * p.sy[0] + gc : y, 4 * live);
+    }
+  } else {   // a slow path: not unrolled, to keep registers for the sums
+#pragma unroll 1
+    for (int i = 0; i < BM * BK / NT; ++i) {
+      const int e = tid + NT * i, r = e / BK, c = e % BK;
+      const int gr = row0 + r, k = k0 + c;
+      const bool live = gr < p.m && k < p.hi;
+      cp_async4(xs + r * XP + c, live ? x + gr * p.sx[0] + k * p.sx[1] : x,
+                live ? 4 : 0);
+    }
+#pragma unroll 1
+    for (int i = 0; i < BK * BN / NT; ++i) {
+      const int e = tid + NT * i, r = e / BN, c = e % BN;
+      const int k = k0 + r, gc = col0 + c;
+      const bool live = k < p.hi && gc < p.n;
+      cp_async4(ys + r * BN + c, live ? y + k * p.sy[0] + gc * p.sy[1] : y,
+                live ? 4 : 0);
+    }
+  }
+}
 
-  float acc[8][8];
+// Whether the accumulator entries at a..a+3 (columns c..c+3) are one
+// aligned float4.
+__device__ __forceinline__ bool acc_vec(const float* a, const long long* s,
+                                        int c, int acc_n) {
+  return s[1] == 1 && c + 4 <= acc_n &&
+         reinterpret_cast<uintptr_t>(a) % 16 == 0;
+}
+
+// Thread (tx, ty) = (tid % TX, tid / TX) owns rows ty + TY i, i < 8, and
+// columns 4 (tx + TX g) + e, g < TN / 4, e < 4, of the block's tile: per
+// reduction row 8 values of x and TN of y feed 8 TN products, read as
+// 16-byte broadcasts (x, along k) and 16-byte reads of consecutive
+// columns (y).
+template <bool VEC>
+__global__ void __launch_bounds__(NT, 1) gemm_resume_simt_kernel(
+    const GemmParams p) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                        // [STAGES][BM][XP]
+  float* ys = smem + STAGES * X_FLOATS;    // [STAGES][BK][BN]
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int n_tiles = (p.hi - p.lo + BK - 1) / BK;
+
+  // the first STAGES - 1 tiles go in flight before acc_in is read
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles)
+      load_stage<VEC>(p, xs + s * X_FLOATS, ys + s * Y_FLOATS,
+                      p.lo + s * BK, row0, col0);
+    cp_async_commit();
+  }
+
+  float acc[8][TN];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int r = row0 + sub(ty, i);
+    const int r = row0 + ty + TY * i;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = col0 + sub(tx, j);
-      acc[i][j] = (r < p.acc_m && c < p.acc_n)
-                      ? p.acc_in[r * p.sa[0] + c * p.sa[1]] : 0.f;
+    for (int g = 0; g < TN / 4; ++g) {
+      const int c = col0 + 4 * (tx + TX * g);
+      const float* src = p.acc_in + r * p.sa[0] + c * p.sa[1];
+      if (r < p.acc_m && acc_vec(src, p.sa, c, p.acc_n)) {
+        const float4 v = *reinterpret_cast<const float4*>(src);
+        acc[i][4 * g] = v.x;
+        acc[i][4 * g + 1] = v.y;
+        acc[i][4 * g + 2] = v.z;
+        acc[i][4 * g + 3] = v.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][4 * g + e] =
+              (r < p.acc_m && c + e < p.acc_n) ? src[e * p.sa[1]] : 0.f;
+      }
     }
   }
 
-  // staged in registers while the products of the current tile run
-  float xr[LX], yr[LY];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < LX; ++i) {
-      const int e = tid + NT * i, r = row0 + e / BK, k = k0 + e % BK;
-      xr[i] = (r < p.m && k < p.hi) ? x[r * p.sx[0] + k * p.sx[1]] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < LY; ++i) {
-      const int e = tid + NT * i, k = k0 + e / BN, c = col0 + e % BN;
-      yr[i] = (k < p.hi && c < p.n) ? y[k * p.sy[0] + c * p.sy[1]] : 0.f;
-    }
-  };
-
-  load(p.lo);
-  for (int k0 = p.lo; k0 < p.hi; k0 += BK) {
-    __syncthreads();  // every thread is done reading the previous tile
-#pragma unroll
-    for (int i = 0; i < LX; ++i) {
-      const int e = tid + NT * i;
-      Xs[e % BK][e / BK] = xr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < LY; ++i) {
-      const int e = tid + NT * i;
-      Ys[e / BN][e % BN] = yr[i];
-    }
+  // One barrier per stage: after it, tile t has landed for every thread
+  // and every thread is done with tile t - 1, whose slot is refilled.
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
-    if (k0 + BK < p.hi) load(k0 + BK);  // in flight during the products
+    const int next = t + STAGES - 1;
+    if (next < n_tiles)
+      load_stage<VEC>(p, xs + (next % STAGES) * X_FLOATS,
+                      ys + (next % STAGES) * Y_FLOATS, p.lo + next * BK,
+                      row0, col0);
+    cp_async_commit();
+    const float* xt = xs + (t % STAGES) * X_FLOATS;
+    const float* yt = ys + (t % STAGES) * Y_FLOATS;
     // rows past hi were staged as zeros: fmaf(0, 0, a) == a
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&Xs[kk][4 * ty]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&Xs[kk][BM / 2 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Ys[kk][4 * tx]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Ys[kk][BN / 2 + 4 * tx]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int kq = 0; kq < BK; kq += 4) {
+      float a[8][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            &xt[(ty + TY * i) * XP + kq]);
+        a[i][0] = v.x;
+        a[i][1] = v.y;
+        a[i][2] = v.z;
+        a[i][3] = v.w;
+      }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* yr = yt + (kq + kk) * BN + 4 * tx;
+        float b[TN];
+#pragma unroll
+        for (int g = 0; g < TN / 4; ++g) {
+          const float4 v = *reinterpret_cast<const float4*>(&yr[4 * TX * g]);
+          b[4 * g] = v.x;
+          b[4 * g + 1] = v.y;
+          b[4 * g + 2] = v.z;
+          b[4 * g + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+      }
     }
   }
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int r = row0 + sub(ty, i);
+    const int r = row0 + ty + TY * i;
     if (r >= p.acc_m) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = col0 + sub(tx, j);
-      if (c < p.acc_n) p.acc_out[r * p.so[0] + c * p.so[1]] = acc[i][j];
+    for (int g = 0; g < TN / 4; ++g) {
+      const int c = col0 + 4 * (tx + TX * g);
+      float* dst = p.acc_out + r * p.so[0] + c * p.so[1];
+      if (acc_vec(dst, p.so, c, p.acc_n)) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                        acc[i][4 * g + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < p.acc_n) dst[e * p.so[1]] = acc[i][4 * g + e];
+      }
     }
   }
+}
+
+template <bool VEC>
+cudaError_t launch_as(const GemmParams& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_resume_simt_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM_BYTES));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.acc_n + BN - 1) / BN, (p.acc_m + BM - 1) / BM);
+  gemm_resume_simt_kernel<VEC><<<grid, NT, SMEM_BYTES, stream>>>(p);
+  return cudaGetLastError();
 }
 
 cudaError_t launch(const GemmParams& p, cudaStream_t stream) {
-  const dim3 grid((p.acc_n + BN - 1) / BN, (p.acc_m + BM - 1) / BM);
-  gemm_resume_simt_kernel<<<grid, NT, 0, stream>>>(p);
-  return cudaGetLastError();
+  const bool vec = p.sx[1] == 1 && p.sy[1] == 1 && p.sx[0] % 4 == 0 &&
+                   p.sy[0] % 4 == 0 && p.lo % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(p.x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(p.y) % 16 == 0;
+  return vec ? launch_as<true>(p, stream) : launch_as<false>(p, stream);
 }
 
 }  // namespace simt

@@ -14,6 +14,7 @@ from repro_torch.kernels import (DTYPE_CODES, check_attention_inputs,
                                  cuda_lib, tma_operand)
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 
+HEAD_DIMS = (8, 16, 32, 64, 128)   # the head widths the kernel is built for
 launches = 0        # kernel launches by this wrapper in this process
 layout_copies = 0   # K or V copied because 16-byte loads could not read it
 # per device, the kernel's (B * Hkv) int32 merge tickets: zeros, and left
@@ -59,7 +60,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or a 0-dim int32 tensor on q's device, read without a host sync and
     clamped to [0, T)."""
     global launches
-    check_attention_inputs(q, k, v, q_ndim=3)
+    check_attention_inputs(q, k, v, q_ndim=3, head_dims=HEAD_DIMS)
     b, hq, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     pos = _check_pos(pos, q, t)

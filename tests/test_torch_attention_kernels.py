@@ -25,6 +25,7 @@ CASES = [  # b, hq, hkv, s, t, d, causal
     (2, 4, 1, 100, 100, 64, True),      # ragged (padding path)
     (1, 4, 2, 64, 192, 64, False),      # cross-attention shape
     (1, 2, 2, 128, 128, 128, True),
+    (1, 4, 2, 100, 100, 80, False),     # hubert-xlarge's head width
 ]
 DECODE_CASES = [  # b, hq, hkv, t, d, pos
     (2, 8, 2, 512, 64, 300),
@@ -124,6 +125,18 @@ def test_wrappers_reject_bad_inputs(bad):
     with pytest.raises(ValueError):
         flash_attention(q, k, v)
     with pytest.raises(ValueError):
+        decode_attention(q[:, :, 0], k, v, 3)
+
+
+def test_flash_takes_head_width_80_and_names_its_widths():
+    """hubert-xlarge's head width 80 reaches flash, not decode (the model is
+    an encoder); any width outside a wrapper's list raises before a launch,
+    naming the widths it takes."""
+    q, k, v = _inputs(d=80)
+    assert flash_attention(q, k, v).shape == q.shape
+    with pytest.raises(ValueError, match=r"\(8, 16, 32, 64, 80, 128\)"):
+        flash_attention(*_inputs(d=96))
+    with pytest.raises(ValueError, match=r"\(8, 16, 32, 64, 128\)"):
         decode_attention(q[:, :, 0], k, v, 3)
 
 
