@@ -15,11 +15,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    at the serving path's shapes (B 1, Hq 32, Hkv 8, D 128; bf16 and f32;
    flash runs its wgmma kernel in bf16 and its CUDA-core kernel in f32,
    and the CUDA-core kernel also at D 80 and 64; decode also at
-   deepseek-coder-33b's Hq 56), with kernel, plain and library (SDPA, a
-   yardstick the port never calls) times by CUDA events and the card's
-   bound; for decode also device times from CUDA-graph replays, a bitwise
-   run-to-run check, and one call with a device ``pos`` captured in a
-   CUDA graph and replayed at four positions;
+   deepseek-coder-33b's Hq 56; both in bf16 also at qwen3-moe-30b-a3b's
+   Hq 32 over Hkv 4, decode's group of 8), with kernel, plain and
+   library (SDPA, a yardstick the port never calls) times by CUDA events
+   and the card's bound; for decode also device times from CUDA-graph
+   replays, a bitwise run-to-run check, and one call with a device
+   ``pos`` captured in a CUDA graph and replayed at four positions;
 3. the preemptible GEMM against its plain version run in float64, at the
    reference test's shapes and qwen3-8b's full-width down projection, over
    the whole K range and a middle range seeded from a non-zero
@@ -27,8 +28,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    also launches that start off a multiple of 4 rows or read x through
    strides, bitwise equal to one launch; timed at full width beside
    cuBLAS;
-4. tiny qwen3-8b, olmo-1b and deepseek-coder-33b in f32 on the card
-   against the same weights on the CPU;
+4. tiny qwen3-8b, olmo-1b, deepseek-coder-33b, qwen3-moe-30b-a3b and
+   phi3.5-moe-42b-a6.6b in f32 on the card against the same weights on
+   the CPU, with the MoE router's least top-k margin on the CPU (a
+   routing flip shows as a large error);
 5. the serving path: the PREMA ``ServingEngine`` serving 8 requests on
    full-width qwen3-8b in bf16, checked against isolated runs, with the
    kernels' launch counts, per kernel variant, checked against the
@@ -40,11 +43,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (``repro_torch.examples.preemptible_kernel_demo --full``) in bf16 and
    in f32, each one uninterrupted launch and 48 preempted quanta that must
    agree bit for bit, with its launch count (all on the dtype's kernel)
-   checked.
+   checked;
+8. the MoE serving path: 4 requests (one prompt of 2048 tokens) on
+   full-width qwen3-moe-30b-a3b in bf16, 61.1 GB of weights, checked as
+   in 5: its prefill on the wgmma flash kernel and its decode on the
+   decode kernel's group of 8;
+9. the dense archs not served above: 3 requests each on full-width
+   olmo-1b and qwen1.5-4b in bf16, checked as in 5 (decode at group 1,
+   non-parametric LayerNorm, tied embeddings, QKV bias).
 
-Then a ``{"kernels": [...]}`` line and, last, the device line.  Without a
-CUDA device, or without the repository beside it, it exits non-zero and
-prints no result.
+Each serving phase also holds its profiled prefill's device time against
+CUDA events around the same prefill.  Then a ``{"kernels": [...]}`` line
+and, last, the device line.  Without a CUDA device, or without the
+repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse
+import contextlib
 import gc
 import json
 import re
@@ -192,15 +204,15 @@ def _model_layout(gen, b, t, h, d, dtype):
     return x.transpose(1, 2)
 
 
-def flash_case(gen, dtype, s, causal, d=D):
+def flash_case(gen, dtype, s, causal, d=D, hkv=HKV):
     from repro_torch.kernels.flash_attention import (bf16_tolerance,
                                                      flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention.ops import kernel_variant
     F = torch.nn.functional
     q = _model_layout(gen, B, s, HQ, d, dtype)
-    k = _model_layout(gen, B, s, HKV, d, dtype)
-    v = _model_layout(gen, B, s, HKV, d, dtype)
+    k = _model_layout(gen, B, s, hkv, d, dtype)
+    v = _model_layout(gen, B, s, hkv, d, dtype)
     out = flash_attention(q, k, v, causal)
     ref = flash_attention_plain(*as_f32(q, k, v), causal)
     variant = kernel_variant(dtype, d)
@@ -212,7 +224,7 @@ def flash_case(gen, dtype, s, causal, d=D):
     torch.cuda.synchronize()
     err = max_err(out, ref)
     sets = [(q, k, v)] + [tuple(_model_layout(gen, B, s, h, d, dtype)
-                                for h in (HQ, HKV, HKV))
+                                for h in (HQ, hkv, hkv))
                           for _ in range(n_copies(nbytes(q, k, v)) - 1)]
     pairs = s * (s + 1) // 2 if causal else s * s
     ops = 4 * B * HQ * d * pairs
@@ -220,7 +232,8 @@ def flash_case(gen, dtype, s, causal, d=D):
     t_ops, t_bytes = ops / PEAK_OPS[dtype], moved / HBM_BYTES_PER_S
     row = dict(
         kernel="flash_attention", variant=variant,
-        dtype=str(dtype).split(".")[1], D=d, S=s, T=s, causal=causal,
+        dtype=str(dtype).split(".")[1], D=d, Hkv=hkv, S=s, T=s,
+        causal=causal,
         max_abs_err=err, tolerance=tol_name, err_over_tol=ratio,
         ok=ratio <= 1.0,
         ms=time_ms(lambda a, b_, c: flash_attention(a, b_, c, causal), sets),
@@ -233,15 +246,15 @@ def flash_case(gen, dtype, s, causal, d=D):
     return row
 
 
-def decode_case(gen, dtype, t, pos, hq=HQ):
+def decode_case(gen, dtype, t, pos, hq=HQ, hkv=HKV):
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
     F = torch.nn.functional
 
     def inputs():
         q = torch.randn((B, hq, D), generator=gen, device="cuda", dtype=dtype)
-        return (q, _model_layout(gen, B, t, HKV, D, dtype),
-                _model_layout(gen, B, t, HKV, D, dtype))
+        return (q, _model_layout(gen, B, t, hkv, D, dtype),
+                _model_layout(gen, B, t, hkv, D, dtype))
     q, k, v = inputs()
     out = decode_attention(q, k, v, pos)
     again = decode_attention(q, k, v, pos)
@@ -250,7 +263,7 @@ def decode_case(gen, dtype, t, pos, hq=HQ):
     err, tol = max_err(out, ref), TOL[dtype]
     ratio = over_tol(out, ref, tolerance(ref, tol))
     bitwise = bool(torch.equal(out, again))
-    live = 2 * B * HKV * (pos + 1) * D * k.element_size()
+    live = 2 * B * hkv * (pos + 1) * D * k.element_size()
     sets = [(q, k, v)] + [inputs() for _ in range(n_copies(live) - 1)]
     ops = 4 * B * hq * D * (pos + 1)
     moved = nbytes(q, out) + live
@@ -262,7 +275,8 @@ def decode_case(gen, dtype, t, pos, hq=HQ):
             enable_gqa=True)
     return dict(
         kernel="decode_attention", dtype=str(dtype).split(".")[1], Hq=hq,
-        T=t, pos=pos, max_abs_err=err, tolerance=f"{tol}", err_over_tol=ratio,
+        Hkv=hkv, T=t, pos=pos, max_abs_err=err, tolerance=f"{tol}",
+        err_over_tol=ratio,
         bitwise_run_to_run=bitwise, ok=ratio <= 1.0 and bitwise,
         ms=time_ms(lambda a, b_, c: decode_attention(a, b_, c, pos), sets),
         plain_ms=time_ms(lambda a, b_, c: decode_attention_plain(a, b_, c,
@@ -329,6 +343,12 @@ def phase_kernels():
                                 (torch.bfloat16, 64, 1024, True)):
         rows.append(flash_case(gen, dtype, s, causal, d))
         emit("kernel_check", **rows[-1])
+    # qwen3-moe-30b-a3b's layout, 32 query heads over 4 KV heads: flash
+    # at Hkv 4 and decode's group of 8
+    rows.append(flash_case(gen, torch.bfloat16, 2048, True, hkv=4))
+    emit("kernel_check", **rows[-1])
+    rows.append(decode_case(gen, torch.bfloat16, 2560, 2048, hkv=4))
+    emit("kernel_check", **rows[-1])
     graphs = [decode_graph_case(gen, dtype)
               for dtype in (torch.bfloat16, torch.float32)]
     for g in graphs:
@@ -444,26 +464,58 @@ def phase_gemm():
 # --------------------------------------------------------------------------
 # phase 4: tiny models, card against CPU
 # --------------------------------------------------------------------------
+@contextlib.contextmanager
+def router_margins(margins: list):
+    """While open, each MoE routing on the CPU appends the least gap, over
+    its tokens, between the k-th and the (k+1)-th router probability: a
+    gap below the card's error could flip which experts a token uses."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(x2d, p, cfg):
+        if x2d.device.type == "cpu":
+            probs = torch.softmax(x2d.float() @ p["router"], dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True).values
+            margins.append(float((top[:, cfg.top_k - 1]
+                                  - top[:, cfg.top_k]).min()))
+        return route(x2d, p, cfg)
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
 def phase_tiny():
+    out = {name: tiny_card_vs_cpu(name) for name in (
+        "qwen3-8b", "olmo-1b", "deepseek-coder-33b", "qwen3-moe-30b-a3b",
+        "phi3.5-moe-42b-a6.6b")}
+    emit("tiny_card_vs_cpu", dtype="float32", **out)
+
+
+def tiny_card_vs_cpu(name: str) -> dict:
+    """Prefill and 8 teacher-forced decode steps of tiny ``name`` in f32,
+    on the card and on the CPU from the same weights; for an MoE also the
+    router's least top-k margin on the CPU."""
     from repro_torch.models import get_model
     from repro_torch.models.transformer import tree_map
     from repro_torch.params import params_from_numpy
     from repro_torch.serving import PreemptibleExecutor
 
-    out = {}
-    for name in ("qwen3-8b", "olmo-1b", "deepseek-coder-33b"):
-        model = get_model(name, tiny=True)
-        cpu = model.init_params(generator=torch.Generator().manual_seed(1),
-                                dtype=torch.float32, device="cpu")
-        gpu = params_from_numpy(tree_map(lambda x: x.numpy(), cpu), "cuda")
-        prompt = np.random.default_rng(2).integers(
-            1, model.cfg.vocab_size, (1, 12)).astype(np.int32)
-        ex_c = PreemptibleExecutor(model, cpu)
-        ex_g = PreemptibleExecutor(model, gpu)
+    model = get_model(name, tiny=True)
+    cpu = model.init_params(generator=torch.Generator().manual_seed(1),
+                            dtype=torch.float32, device="cpu")
+    gpu = params_from_numpy(tree_map(lambda x: x.numpy(), cpu), "cuda")
+    prompt = np.random.default_rng(2).integers(
+        1, model.cfg.vocab_size, (1, 12)).astype(np.int32)
+    ex_c = PreemptibleExecutor(model, cpu)
+    ex_g = PreemptibleExecutor(model, gpu)
+    margins = []
+    with router_margins(margins):
         sc, sg = ex_c.start({"tokens": prompt}), ex_g.start({"tokens": prompt})
         while sc.phase == "prefill":
             sc, sg = ex_c.step_prefill(sc), ex_g.step_prefill(sg)
-        err, compared = 0.0, 0
+        err, compared, differs = 0.0, 0, []
         for step in range(8):
             lc, lg = sc.last_logits.float(), sg.last_logits.float().cpu()
             err = max(err, max_err(lc, lg))
@@ -471,15 +523,17 @@ def phase_tiny():
             if float(top2[0] - top2[1]) > TINY_TOL:
                 compared += 1
                 if not np.array_equal(sc.tokens_out[-1], sg.tokens_out[-1]):
-                    raise SystemExit(f"{name}: token differs at step {step}")
+                    differs.append(step)
             # teacher forcing: both continue from the CPU's token
             sg.tokens_out[-1] = sc.tokens_out[-1].copy()
             sc, sg = ex_c.step_decode(sc), ex_g.step_decode(sg)
-        if err > TINY_TOL:
-            raise SystemExit(f"{name}: card vs CPU logits differ by {err}")
-        out[name] = {"max_abs_err": err, "tol": TINY_TOL,
-                     "tokens_compared": compared}
-    emit("tiny_card_vs_cpu", dtype="float32", **out)
+    row = {"max_abs_err": err, "tol": TINY_TOL, "tokens_compared": compared}
+    if margins:
+        row["router_topk_margin"] = min(margins)
+    if differs or err > TINY_TOL:
+        raise SystemExit(f"{name}: card vs CPU: {row}, tokens differ at "
+                         f"steps {differs}")
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -634,19 +688,20 @@ def serve_and_check(model, params, dtype, reqs, sync):
                     isolated_launches=iso_launches))
 
 
-def phase_serve(card: str, dtype=torch.bfloat16, n_requests: int = 8,
-                seed: int = 0, first_len=None):
-    """The PREMA engine serving ``n_requests`` on full-width qwen3-8b with
+def phase_serve(card: str, arch: str = "qwen3-8b", dtype=torch.bfloat16,
+                n_requests: int = 8, seed: int = 0, first_len=None):
+    """The PREMA engine serving ``n_requests`` on full-width ``arch`` with
     random weights of ``dtype``: checked against isolated runs, with launch
     counts, wall time and one request's device profile."""
     from repro_torch.hw import H100
     from repro_torch.models import get_model
+    from repro_torch.models.transformer import tree_leaves
 
     torch.use_deterministic_algorithms(True)
     # every kernel writes all of its outputs: no need to fill torch.empty
     torch.utils.deterministic.fill_uninitialized_memory = False
     name = str(dtype).split(".")[1]
-    model = get_model("qwen3-8b")
+    model = get_model(arch)
     cfg = model.cfg
     t0 = time.perf_counter()
     params = model.init_params(
@@ -657,29 +712,37 @@ def phase_serve(card: str, dtype=torch.bfloat16, n_requests: int = 8,
     reqs, window = make_requests(cfg, H100, n_requests, seed, first_len)
     torch.cuda.reset_peak_memory_stats()
     run = serve_and_check(model, params, dtype, reqs, torch.cuda.synchronize)
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     emit("serve", model=cfg.name, dtype=name, n_layers=cfg.n_layers,
-         d_model=cfg.d_model,
+         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+         n_experts=cfg.n_experts, top_k=cfg.top_k, weights_gb=weights / 1e9,
          prompt_lens=[int(q.prompt.shape[1]) for q in reqs],
          arrival_window_s=window, param_init_s=init_s,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          **run["checks"])
-    emit("serve_virtual_clock", dtype=name, note="engine summary(): virtual "
-         "clock of the H100 hardware model, not measured time",
+    emit("serve_virtual_clock", model=cfg.name, dtype=name,
+         note="engine summary(): virtual clock of the H100 hardware model, "
+              "not measured time",
          **{k: float(v) for k, v in run["engine"].summary().items()})
-    emit("serve_wall", card=card, dtype=name, wall_s=run["wall_s"],
-         generated_tokens=run["generated_tokens"],
+    emit("serve_wall", card=card, model=cfg.name, dtype=name,
+         wall_s=run["wall_s"], generated_tokens=run["generated_tokens"],
          tokens_per_s=run["generated_tokens"] / run["wall_s"],
          isolated_runs_wall_s=run["isolated_wall_s"])
     longest = max(reqs, key=lambda q: q.prompt.shape[1])
     prof = profile_request(run["executor"], longest.prompt,
                            longest.max_new_tokens)
-    emit("serve_profile", card=card, dtype=name,
+    emit("serve_profile", card=card, model=cfg.name, dtype=name,
          prompt_len=int(longest.prompt.shape[1]), **prof)
     pre = prof["prefill"]
     flash = pre["family_ms"]["flash_attention"]
-    emit("serve_prefill", card=card, dtype=name, wall_s=run["wall_s"],
-         prompt_len=int(longest.prompt.shape[1]),
+    # the profiler's busy time cannot exceed the events' span around the
+    # same work: a reading above it is the profiler's fault
+    emit("serve_prefill", card=card, model=cfg.name, dtype=name,
+         wall_s=run["wall_s"], prompt_len=int(longest.prompt.shape[1]),
          prefill_wall_ms=pre["wall_ms"], prefill_device_ms=pre["device_ms"],
+         prefill_event_ms=pre["event_ms"],
+         profile_over_events=pre["device_ms"] / pre["event_ms"],
+         profile_within_events=pre["device_ms"] <= pre["event_ms"] * 1.001,
          flash_ms=flash, flash_share_of_device=flash / pre["device_ms"])
     return run["checks"]["engine_launches"]
 
@@ -689,7 +752,34 @@ def phase_serve_f32(card: str):
     first with a 2048-token prompt.  The bf16 model is gone by now."""
     gc.collect()
     torch.cuda.empty_cache()
-    return phase_serve(card, torch.float32, n_requests=3, first_len=2048)
+    return phase_serve(card, dtype=torch.float32, n_requests=3,
+                       first_len=2048)
+
+
+def phase_serve_moe(card: str):
+    """Full-width qwen3-moe-30b-a3b (48 layers, d_model 2048, 128 experts,
+    top 8; 61.1 GB of weights) in bf16: 4 requests, the first with a
+    2048-token prompt.  Its prefill runs the wgmma flash kernel at 4 KV
+    heads and its decode the decode kernel's group of 8 (32 query heads
+    over 4 KV heads).  bf16 only: in f32 its weights are 122 GB, more than
+    the card holds.  Every earlier model is freed first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return phase_serve(card, "qwen3-moe-30b-a3b", n_requests=4,
+                       first_len=2048)
+
+
+def phase_serve_dense(card: str):
+    """3 requests each on full-width olmo-1b (MHA, so decode's group of 1;
+    non-parametric LayerNorm, tied embeddings) and qwen1.5-4b (MHA, QKV
+    bias) in bf16; the launches of both runs add up."""
+    total = _no_launches()
+    for arch in ("olmo-1b", "qwen1.5-4b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        for counter, n in phase_serve(card, arch, n_requests=3).items():
+            total[counter] += n
+    return total
 
 
 def _family(name: str) -> str:
@@ -722,21 +812,28 @@ def _device_breakdown(prof, wall_s: float) -> dict:
 
 def profile_request(executor, prompt, max_new_tokens: int) -> dict:
     """Device time by kernel family (``torch.profiler``, CUDA activity
-    only) for the prefill and then the decode of one isolated request."""
+    only) for the prefill and then the decode of one isolated request,
+    beside the span of CUDA events recorded around the same steps."""
     from torch.profiler import ProfilerActivity, profile
     st = executor.start({"tokens": prompt})
     out = {}
     for phase in ("prefill", "decode"):
         torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
+            start.record()
             steps = 0
             while st.phase == phase and len(st.tokens_out) < max_new_tokens:
                 st = executor.step(st)
                 steps += 1
+            end.record()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        out[phase] = dict(steps=steps, **_device_breakdown(prof, wall))
+        out[phase] = dict(steps=steps, event_ms=start.elapsed_time(end),
+                          **_device_breakdown(prof, wall))
+        out[phase]["device_ms_per_step"] = out[phase]["device_ms"] / steps
     return out
 
 
@@ -811,21 +908,22 @@ def compiled_kernels(lib_path: Path):
     return out
 
 
-PHASES = ("kernels", "gemm", "tiny", "serve", "serve_f32", "path")
+PHASES = ("kernels", "gemm", "tiny", "serve", "serve_f32", "path",
+          "serve_moe", "serve_dense")
 # the kernels line: name, launch counter, source, TPU kernel, headline row
 KERNELS = [
     ("flash_attention_wgmma_bf16", "flash_attention/wgmma",
      "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:90",
-     dict(kernel="flash_attention", dtype="bfloat16", D=D, S=2048,
+     dict(kernel="flash_attention", dtype="bfloat16", D=D, Hkv=HKV, S=2048,
           causal=True)),
     ("flash_attention_cuda_core_f32", "flash_attention/cuda_core",
      "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:90",
-     dict(kernel="flash_attention", dtype="float32", D=D, S=2048,
+     dict(kernel="flash_attention", dtype="float32", D=D, Hkv=HKV, S=2048,
           causal=True)),
     ("decode_attention", "decode_attention", "decode_attention.cu",
      "src/repro/kernels/decode_attention/kernel.py:91",
-     dict(kernel="decode_attention", dtype="bfloat16", Hq=HQ, T=2560,
-          pos=2048)),
+     dict(kernel="decode_attention", dtype="bfloat16", Hq=HQ, Hkv=HKV,
+          T=2560, pos=2048)),
     ("preemptible_matmul_wgmma_bf16", "preemptible_matmul/wgmma",
      "preemptible_matmul.cu",
      "src/repro/kernels/preemptible_matmul/kernel.py:59",
@@ -898,7 +996,8 @@ def main(argv=None) -> int:
     # kernels line adds up what the paths launched
     launches = _no_launches()
     paths = [("serve", phase_serve), ("serve_f32", phase_serve_f32),
-             ("path", phase_gemm_path)]
+             ("path", phase_gemm_path), ("serve_moe", phase_serve_moe),
+             ("serve_dense", phase_serve_dense)]
     for phase, run in paths:
         if phase in phases:
             for counter, n in run(card).items():

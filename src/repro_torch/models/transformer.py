@@ -1,10 +1,10 @@
-"""The composable model, dense slice (port of
-``repro/models/transformer.py``): a periodic stack of (attn, mlp) blocks.
+"""The composable model (port of ``repro/models/transformer.py``): a
+periodic stack of (attn, mlp or moe) blocks.
 
 Per-slot parameters are stacked on a leading ``n_periods`` axis as in the
 reference; its ``lax.scan`` over periods becomes a Python loop.  Mixers
-other than self-attention and MoE feed-forwards raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+other than self-attention raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 
 The cache is a dict ``{"slot{i}": {"k", "v"}}`` of (n_periods, B, T, Hkv,
 Dh) tensors.  ``decode_step`` updates it in place and returns it.
@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        init_embed, init_mlp, init_norm,
                                        normal_leaf, unembed)
@@ -27,7 +28,6 @@ Params = Dict[str, Any]
 Cache = Dict[str, Any]
 
 _ROADMAP = {
-    "moe": "item 7 (MoE)",
     "mamba": "item 8 (SSM and hybrid models)",
     "mlstm": "item 8 (SSM and hybrid models)",
     "slstm": "item 8 (SSM and hybrid models)",
@@ -43,12 +43,12 @@ def _not_ported(what: str, key: str) -> NotImplementedError:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is in the dense slice."""
-    for mixer, ffn in cfg.block_pattern:
+    """Raise ``NotImplementedError`` unless every block of ``cfg`` is
+    self-attention with an MLP or MoE feed-forward (or none) and its inputs
+    are tokens."""
+    for mixer, _ in cfg.block_pattern:
         if mixer != "attn":
             raise _not_ported(f"{cfg.name}: mixer {mixer!r}", mixer)
-        if ffn == "moe":
-            raise _not_ported(f"{cfg.name}: ffn 'moe'", "moe")
     if cfg.img_tokens or cfg.embedding_inputs:
         raise _not_ported(f"{cfg.name}: image/embedding inputs", "inputs")
 
@@ -69,8 +69,9 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
         slot = {"norm1": init_norm(cfg, n, dtype, dev),
                 "mixer": attn.init_attn(cfg, generator, n, dtype, dev)}
         if ffn != "none":
+            init_ffn = moe_mod.init_moe if ffn == "moe" else init_mlp
             slot["norm2"] = init_norm(cfg, n, dtype, dev)
-            slot["ffn"] = init_mlp(cfg, generator, n, dtype, dev)
+            slot["ffn"] = init_ffn(cfg, generator, n, dtype, dev)
         params["slots"][f"slot{i}"] = slot
     params["final_norm"] = init_norm(cfg, None, dtype, dev)
     if not cfg.tie_embeddings:
@@ -106,19 +107,27 @@ def period_params(slots: Params, i: int) -> Params:
 # ==========================================================================
 def _apply_block(slot_idx: int, h: torch.Tensor, slot_p: Params,
                  cfg: ArchConfig, mode: str, cache: Optional[Cache],
-                 pos: Optional[int]) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Pre-norm residual block (self-attention, then the MLP if any).
-    Returns (h, new_cache)."""
+                 pos: Optional[int]
+                 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
+    """Pre-norm residual block (self-attention, then the MLP or MoE if
+    any).  Returns (h, new_cache, aux), aux the MoE's load-balance loss
+    (f32 zero for other blocks)."""
+    ffn = cfg.block_pattern[slot_idx][1]
     y = apply_norm(h, slot_p["norm1"], cfg)
     if mode == "decode":
         y, new_cache = attn.attn_decode(y, slot_p["mixer"], cfg, cache, pos)
     else:
         y, new_cache = attn.attn_prefill(y, slot_p["mixer"], cfg)
     h = h + y
-    if cfg.block_pattern[slot_idx][1] != "none":
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if ffn != "none":
         y = apply_norm(h, slot_p["norm2"], cfg)
-        h = h + apply_mlp(y, slot_p["ffn"], cfg)
-    return h, new_cache
+        if ffn == "moe":
+            y, aux = moe_mod.apply_moe(y, slot_p["ffn"], cfg)
+        else:
+            y = apply_mlp(y, slot_p["ffn"], cfg)
+        h = h + y
+    return h, new_cache, aux
 
 
 def _embed_inputs(params: Params, cfg: ArchConfig,
@@ -138,8 +147,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
         slots = period_params(params["slots"], p_idx)
         new_cache = {}
         for i in range(cfg.period):
-            h, nc = _apply_block(i, h, slots[f"slot{i}"], cfg, "prefill",
-                                 None, None)
+            h, nc, _ = _apply_block(i, h, slots[f"slot{i}"], cfg,
+                                    "prefill", None, None)
             new_cache[f"slot{i}"] = nc
         per_period.append(new_cache)
     cache = stack_periods(per_period)
@@ -164,8 +173,8 @@ def decode_step(params: Params, cache: Cache, tokens: torch.Tensor, pos: int,
         for i in range(cfg.period):
             name = f"slot{i}"
             period_cache = {k: c[p_idx] for k, c in cache[name].items()}
-            h, _ = _apply_block(i, h, slots[name], cfg, "decode",
-                                period_cache, pos)
+            h, _, _ = _apply_block(i, h, slots[name], cfg, "decode",
+                                   period_cache, pos)
     h = apply_norm(h, params["final_norm"], cfg)
     return unembed(h, params, cfg), cache
 

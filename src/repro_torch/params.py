@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.kernels.preemptible_matmul import MatmulCheckpoint
 
+# leaves the reference keeps in f32 whatever the model dtype: the MoE
+# router (repro/models/moe.py, init_moe)
+F32_LEAVES = frozenset({"router"})
+
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises for ``cuda`` without a card
@@ -43,14 +47,15 @@ def _leaf_to_tensor(a, device: torch.device,
 def params_from_numpy(tree: Dict[str, Any], device,
                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Nested dict of array-likes → the same nesting of tensors on
-    ``device`` (cast to ``dtype`` when given).  Empty dicts (the
-    ``layernorm_np`` norms) stay empty."""
+    ``device`` (cast to ``dtype`` when given, except ``F32_LEAVES``, which
+    stay f32).  Empty dicts (the ``layernorm_np`` norms) stay empty."""
     dev = resolve_device(device)
 
-    def convert(node):
+    def convert(node, name=None):
         if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
-        return _leaf_to_tensor(node, dev, dtype)
+            return {k: convert(v, k) for k, v in node.items()}
+        return _leaf_to_tensor(node, dev, torch.float32
+                               if name in F32_LEAVES else dtype)
     return convert(tree)
 
 

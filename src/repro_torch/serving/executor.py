@@ -90,8 +90,8 @@ class PreemptibleExecutor:
         slots = transformer.period_params(self.params["slots"], st.period_idx)
         h, new_cache = st.h, {}
         for i in range(cfg.period):
-            h, nc = transformer._apply_block(i, h, slots[f"slot{i}"], cfg,
-                                             "prefill", None, None)
+            h, nc, _ = transformer._apply_block(i, h, slots[f"slot{i}"],
+                                                cfg, "prefill", None, None)
             new_cache[f"slot{i}"] = nc
         st.h = h
         st.cache_slices.append(new_cache)

@@ -1,5 +1,6 @@
 """The port's ServingEngine against ``repro.serving.ServingEngine`` on
-bridged weights (tiny olmo-1b and qwen3-8b, f32), with ``hw=TPU_V5E``
+bridged weights (tiny olmo-1b with qwen3-8b, and olmo-1b with qwen3-moe as
+the reference's own serving tests mix them; f32), with ``hw=TPU_V5E``
 passed to both: every request result and the summary agree."""
 import jax
 import jax.numpy as jnp
@@ -18,12 +19,13 @@ from repro_torch.params import params_from_numpy
 
 torch.set_num_threads(2)
 ARCHS = ("olmo-1b", "qwen3-8b")
+# the reference's tiny_models (tests/test_serving.py)
+MOE_ARCHS = ("olmo-1b", "qwen3-moe-30b-a3b")
 
 
-@pytest.fixture(scope="module")
-def models():
+def _bridge(archs):
     jm, tm = {}, {}
-    for name in ARCHS:
+    for name in archs:
         jmodel = jax_get_model(name, tiny=True)
         tree = jax.tree.map(np.asarray, jmodel.init_params(jax.random.PRNGKey(1)))
         jm[name] = (jmodel, jax.tree.map(jnp.asarray, tree))
@@ -31,13 +33,23 @@ def models():
     return jm, tm
 
 
-def _requests(mod, seed, n=8, window=1e-4):
+@pytest.fixture(scope="module")
+def models():
+    return _bridge(ARCHS)
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    return _bridge(MOE_ARCHS)
+
+
+def _requests(mod, seed, n=8, window=1e-4, archs=ARCHS):
     rng = np.random.default_rng(seed)
     reqs = []
     for i in range(n):
         plen = int(rng.integers(4, 12))
         reqs.append(mod.InferenceRequest(
-            rid=i, arch=ARCHS[i % 2],
+            rid=i, arch=archs[i % 2],
             prompt=rng.integers(1, 200, (1, plen)).astype(np.int32),
             max_new_tokens=6, priority=int(rng.choice([1, 3, 9])),
             arrival=float(rng.uniform(0, window)),
@@ -45,10 +57,25 @@ def _requests(mod, seed, n=8, window=1e-4):
     return reqs
 
 
-@pytest.mark.parametrize("policy,mechanism,window", [
-    ("prema", "dynamic", 1e-4), ("prema", "checkpoint", 1e-6),
-    ("token", "kill", 1e-4)])
+CASES = [("prema", "dynamic", 1e-4), ("prema", "checkpoint", 1e-6),
+         ("token", "kill", 1e-4)]
+# the MoE mix's predicted times differ, so PREMA preempts only when its
+# requests arrive closer together
+MOE_CASES = [("prema", "dynamic", 1e-5), ("prema", "checkpoint", 1e-6),
+             ("token", "kill", 1e-4)]
+
+
+@pytest.mark.parametrize("policy,mechanism,window", CASES)
 def test_engine_matches_jax(models, policy, mechanism, window):
+    _check_engines(models, policy, mechanism, window, ARCHS)
+
+
+@pytest.mark.parametrize("policy,mechanism,window", MOE_CASES)
+def test_engine_matches_jax_with_moe(moe_models, policy, mechanism, window):
+    _check_engines(moe_models, policy, mechanism, window, MOE_ARCHS)
+
+
+def _check_engines(models, policy, mechanism, window, archs):
     jm, tm = models
     results = {}
     engines = {}
@@ -56,7 +83,8 @@ def test_engine_matches_jax(models, policy, mechanism, window):
                              ("torch", tserving, tm, TPU_V5E)):
         eng = mod.ServingEngine(ms, cfg=mod.EngineConfig(
             hw=hw, policy=policy, mechanism=mechanism))
-        results[key] = sorted(eng.run(_requests(mod, 7, window=window)),
+        results[key] = sorted(eng.run(_requests(mod, 7, window=window,
+                                                archs=archs)),
                               key=lambda r: r.rid)
         engines[key] = eng
     assert len(results["torch"]) == len(results["jax"]) == 8
@@ -91,7 +119,10 @@ def test_engine_defaults_to_h100():
     assert tserving.EngineConfig().hw is H100
 
 
-def test_serve_launcher_runs_on_cpu(capsys):
-    serve.main(["--device", "cpu", "--dtype", "float32", "--n-requests", "4"])
+@pytest.mark.parametrize("archs", [[], ["--archs", "qwen3-moe-30b-a3b"]],
+                         ids=["default", "moe"])
+def test_serve_launcher_runs_on_cpu(capsys, archs):
+    serve.main(archs + ["--device", "cpu", "--dtype", "float32",
+                        "--n-requests", "4"])
     out = capsys.readouterr().out
     assert out.startswith("4 requests | ANTT") and "preemptions" in out
