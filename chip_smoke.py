@@ -28,10 +28,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    also launches that start off a multiple of 4 rows or read x through
    strides, bitwise equal to one launch; timed at full width beside
    cuBLAS;
-4. tiny qwen3-8b, olmo-1b, deepseek-coder-33b, qwen3-moe-30b-a3b and
-   phi3.5-moe-42b-a6.6b in f32 on the card against the same weights on
-   the CPU, with the MoE router's least top-k margin on the CPU (a
-   routing flip shows as a large error);
+4. tiny qwen3-8b, olmo-1b, deepseek-coder-33b, qwen3-moe-30b-a3b,
+   phi3.5-moe-42b-a6.6b, xlstm-350m and jamba-1.5-large-398b (its
+   attention at slot 4, beside Mamba states) in f32 on the card against
+   the same weights on the CPU, with each model's kernel launches and the
+   MoE router's least top-k margin on the CPU (a routing flip shows as a
+   large error);
 5. the serving path: the PREMA ``ServingEngine`` serving 8 requests on
    full-width qwen3-8b in bf16, checked against isolated runs, with the
    kernels' launch counts, per kernel variant, checked against the
@@ -50,7 +52,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    decode kernel's group of 8;
 9. the dense archs not served above: 3 requests each on full-width
    olmo-1b and qwen1.5-4b in bf16, checked as in 5 (decode at group 1,
-   non-parametric LayerNorm, tied embeddings, QKV bias).
+   non-parametric LayerNorm, tied embeddings, QKV bias);
+10. the recurrent models: 3 requests on full-width xlstm-350m in bf16,
+    checked as in 5 with no attention kernel launched, its decode state's
+    bytes equal from first to last token; then jamba-1.5-large's Mamba mixer
+    alone at full width: its chunk carry against decode in f32, card
+    against CPU, and bf16 prefill and decode times.
 
 Each serving phase also holds its profiled prefill's device time against
 CUDA events around the same prefill.  Then a ``{"kernels": [...]}`` line
@@ -489,14 +496,15 @@ def router_margins(margins: list):
 def phase_tiny():
     out = {name: tiny_card_vs_cpu(name) for name in (
         "qwen3-8b", "olmo-1b", "deepseek-coder-33b", "qwen3-moe-30b-a3b",
-        "phi3.5-moe-42b-a6.6b")}
+        "phi3.5-moe-42b-a6.6b", "xlstm-350m", "jamba-1.5-large-398b")}
     emit("tiny_card_vs_cpu", dtype="float32", **out)
 
 
 def tiny_card_vs_cpu(name: str) -> dict:
     """Prefill and 8 teacher-forced decode steps of tiny ``name`` in f32,
-    on the card and on the CPU from the same weights; for an MoE also the
-    router's least top-k margin on the CPU."""
+    on the card and on the CPU from the same weights, with the card's
+    kernel launches; for an MoE also the router's least top-k margin on
+    the CPU."""
     from repro_torch.models import get_model
     from repro_torch.models.transformer import tree_map
     from repro_torch.params import params_from_numpy
@@ -511,6 +519,7 @@ def tiny_card_vs_cpu(name: str) -> dict:
     ex_c = PreemptibleExecutor(model, cpu)
     ex_g = PreemptibleExecutor(model, gpu)
     margins = []
+    _reset_launches()
     with router_margins(margins):
         sc, sg = ex_c.start({"tokens": prompt}), ex_g.start({"tokens": prompt})
         while sc.phase == "prefill":
@@ -527,7 +536,9 @@ def tiny_card_vs_cpu(name: str) -> dict:
             # teacher forcing: both continue from the CPU's token
             sg.tokens_out[-1] = sc.tokens_out[-1].copy()
             sc, sg = ex_c.step_decode(sc), ex_g.step_decode(sg)
-    row = {"max_abs_err": err, "tol": TINY_TOL, "tokens_compared": compared}
+    torch.cuda.synchronize()
+    row = {"max_abs_err": err, "tol": TINY_TOL, "tokens_compared": compared,
+           "launches": {k: n for k, n in _launches().items() if n}}
     if margins:
         row["router_topk_margin"] = min(margins)
     if differs or err > TINY_TOL:
@@ -692,7 +703,9 @@ def phase_serve(card: str, arch: str = "qwen3-8b", dtype=torch.bfloat16,
                 n_requests: int = 8, seed: int = 0, first_len=None):
     """The PREMA engine serving ``n_requests`` on full-width ``arch`` with
     random weights of ``dtype``: checked against isolated runs, with launch
-    counts, wall time and one request's device profile."""
+    counts, wall time and one request's device profile, whose decode
+    state's bytes must not change from its first to its last token in a
+    model without attention."""
     from repro_torch.hw import H100
     from repro_torch.models import get_model
     from repro_torch.models.transformer import tree_leaves
@@ -744,6 +757,11 @@ def phase_serve(card: str, arch: str = "qwen3-8b", dtype=torch.bfloat16,
          profile_over_events=pre["device_ms"] / pre["event_ms"],
          profile_within_events=pre["device_ms"] <= pre["event_ms"] * 1.001,
          flash_ms=flash, flash_share_of_device=flash / pre["device_ms"])
+    state = prof["decode"]["state"]
+    recurrent = all(m != "attn" for m, _ in cfg.block_pattern)
+    if recurrent and len(set(state["cache_bytes"])) != 1:
+        raise SystemExit(f"{cfg.name}: the decode state's size depends on "
+                         f"the context: {state}")
     return run["checks"]["engine_launches"]
 
 
@@ -782,6 +800,139 @@ def phase_serve_dense(card: str):
     return total
 
 
+def phase_serve_ssm(card: str):
+    """(a) Full-width xlstm-350m (24 layers, d_model 1024, 4 heads, vocab
+    50,304; sLSTM and mLSTM blocks 1:7, no attention) in bf16: 3
+    requests, checked as in 5 with no attention launch allowed, and the
+    profiled request's decode state's bytes equal at its first and last
+    token.
+    (b) jamba-1.5-large's Mamba mixer alone at full width.  Every earlier
+    model is freed first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = phase_serve(card, "xlstm-350m", n_requests=3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mamba_full_width(card)
+    return launches
+
+
+CARRY_TOL = 2e-3     # prefill against incremental decode, as in
+                     # tests/test_models.py (rtol = atol = 2e-3)
+
+
+def mamba_full_width(card: str) -> None:
+    """jamba-1.5-large-398b's Mamba mixer at its full widths (d_model
+    8192, d_inner 16384, d_state 16, d_conv 4, dt_rank 128; 1.63 GB of
+    f32 weights), on x (1, 2048, 8192) from a seeded generator:
+
+    1. f32: ``mamba_prefill`` over 2048 tokens (16 chunks, 15 carries)
+       against a prefill over the first 2032 (one chunk) and 16
+       ``mamba_decode`` steps: the last 16 outputs and the final ``ssm``
+       and ``conv`` within ``CARRY_TOL``;
+    2. f32: card against CPU, the same weights, prefill over 256 tokens
+       (2 chunks): output and states within TINY_TOL x max(1, max |CPU|);
+    3. bf16: ``mamba_prefill`` over 2048 tokens and ``mamba_decode`` timed
+       by CUDA events and by the profiler's device time."""
+    from repro_torch import configs
+    from repro_torch.models import ssm
+    from repro_torch.params import F32_LEAVES
+
+    cfg = configs.get_config("jamba-1.5-large-398b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = ssm.init_mamba(cfg, gen, None, torch.float32, "cuda")
+    x = torch.randn((1, 2048, cfg.d_model), generator=gen, device="cuda")
+    with torch.inference_mode():
+        carry, vs_cpu = mamba_checks(p, x, cfg)
+        timed = time_mamba({k: v if k in F32_LEAVES else v.to(torch.bfloat16)
+                            for k, v in p.items()}, x.to(torch.bfloat16), cfg)
+    ok = all(r["ok"] for r in (carry, vs_cpu))
+    emit("mamba_full_width", card=card, model=cfg.name,
+         d_model=cfg.d_model, d_inner=cfg.mamba_d_inner,
+         d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
+         dt_rank=ssm._dt_rank(cfg), weights_gb_f32=nbytes(*p.values()) / 1e9,
+         chunk=ssm.SCAN_CHUNK, carry=carry, card_vs_cpu=vs_cpu, bf16=timed)
+    if not ok:
+        raise SystemExit("jamba's Mamba mixer at full width: prefill against "
+                         "decode or card against CPU out of tolerance")
+
+
+def mamba_checks(p, x, cfg, n_decode: int = 16, s_cpu: int = 256):
+    """Checks 1 and 2 of ``mamba_full_width`` for weights ``p`` and inputs
+    x (1, S, D) on one device: the prefill over S against a prefill over
+    S - ``n_decode`` and ``n_decode`` decode steps, and the prefill over
+    ``s_cpu`` tokens there against the same on the CPU."""
+    from repro_torch.models import ssm
+    s = x.shape[1]
+    y_full, st_full = ssm.mamba_prefill(x, p, cfg)
+    _, st = ssm.mamba_prefill(x[:, :s - n_decode], p, cfg)
+    ys = []
+    for t in range(s - n_decode, s):
+        y, st = ssm.mamba_decode(x[:, t:t + 1], p, cfg, st)
+        ys.append(y)
+    pairs = {"out": (torch.cat(ys, 1), y_full[:, s - n_decode:]),
+             **{k: (st[k], st_full[k]) for k in st}}
+    carry = {k: dict(max_abs_err=max_err(a, b), err_over_tol=over_tol(
+        a, b, tolerance(b, (CARRY_TOL, CARRY_TOL))))
+        for k, (a, b) in pairs.items()}
+    carry = dict(S=s, decode_steps=n_decode, ok=all(
+        r["err_over_tol"] <= 1.0 for r in carry.values()),
+        tolerance=f"atol = rtol = {CARRY_TOL}", **carry)
+    del y_full, st_full, st, ys, pairs
+
+    y_dev, st_dev = ssm.mamba_prefill(x[:, :s_cpu], p, cfg)
+    y_cpu, st_cpu = ssm.mamba_prefill(x[:, :s_cpu].cpu(),
+                                      {k: v.cpu() for k, v in p.items()}, cfg)
+    vs_cpu = {}
+    for k, (a, b) in {"out": (y_dev, y_cpu),
+                      **{k: (st_dev[k], st_cpu[k]) for k in st_cpu}}.items():
+        top = float(b.float().abs().max())
+        vs_cpu[k] = dict(max_abs_err=max_err(a.cpu(), b), max_abs_cpu=top,
+                         bound=TINY_TOL * max(1.0, top))
+    vs_cpu = dict(S=s_cpu, ok=all(r["max_abs_err"] <= r["bound"]
+                                  for r in vs_cpu.values()),
+                  tolerance="TINY_TOL x max(1, max |CPU|)", **vs_cpu)
+    return carry, vs_cpu
+
+
+def time_mamba(p, x, cfg, decode_steps: int = 64) -> dict:
+    """bf16 ``mamba_prefill`` over x's 2048 tokens and ``decode_steps``
+    ``mamba_decode`` steps from its state, each by CUDA events (after a
+    warm-up) and by the profiler's device time over one call (the decode:
+    over all steps); decode's bound is its weights read once at 3.35
+    TB/s."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import ssm
+
+    def prefill():
+        return ssm.mamba_prefill(x, p, cfg)
+
+    def decode(state):
+        for t in range(decode_steps):
+            _, state = ssm.mamba_decode(x[:, t:t + 1], p, cfg, state)
+
+    state = prefill()[1]
+    out = dict(S=int(x.shape[1]), prefill_event_ms=time_ms(prefill, [()], 3),
+               decode_steps=decode_steps,
+               decode_event_ms_per_step=time_ms(decode, [(state,)], 1)
+               / decode_steps,
+               decode_bound_ms_per_step=nbytes(*p.values())
+               / HBM_BYTES_PER_S * 1e3)
+    for name, fn, steps in (("prefill", prefill, 1),
+                            ("decode", lambda: decode(state), decode_steps)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        row = _device_breakdown(prof, wall)
+        out[f"{name}_profile"] = dict(
+            device_ms_per_step=row["device_ms"] / steps,
+            launches_per_step=row["launches"] / steps, **row)
+    return out
+
+
 def _family(name: str) -> str:
     low = name.lower()
     if "flash_fwd_" in name:
@@ -794,30 +945,41 @@ def _family(name: str) -> str:
 
 
 def _device_breakdown(prof, wall_s: float) -> dict:
+    """Device time by kernel family, launches and the six longest kernels,
+    summed from the profiler's raw device events (kernels, copies, sets):
+    the Python records behind ``key_averages()`` take minutes to build for
+    the million launches of a recurrent prefill."""
+    by_name = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            total = by_name.setdefault(evt.name(), [0.0, 0])
+            total[0] += evt.duration_ns() / 1e6
+            total[1] += 1
     fams = {"flash_attention": 0.0, "decode_attention": 0.0, "gemm": 0.0,
             "other": 0.0}
-    kernels = []
-    for evt in prof.key_averages():
-        us = evt.self_device_time_total
-        if us > 0:
-            fams[_family(evt.key)] += us / 1e3
-            kernels.append((us / 1e3, evt.count, evt.key[:90]))
+    for name, (ms, _) in by_name.items():
+        fams[_family(name)] += ms
     device_ms = sum(fams.values())
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     return dict(wall_ms=wall_s * 1e3, device_ms=device_ms,
+                launches=sum(n for _, n in by_name.values()),
                 idle_share=1.0 - device_ms / (wall_s * 1e3),
                 family_ms=fams,
-                top=[dict(ms=ms, count=n, name=k)
-                     for ms, n, k in sorted(kernels, reverse=True)[:6]])
+                top=[dict(ms=ms, count=n, name=k[:90])
+                     for k, (ms, n) in top[:6]])
 
 
 def profile_request(executor, prompt, max_new_tokens: int) -> dict:
     """Device time by kernel family (``torch.profiler``, CUDA activity
     only) for the prefill and then the decode of one isolated request,
-    beside the span of CUDA events recorded around the same steps."""
+    beside the span of CUDA events recorded around the same steps; for
+    the decode also its state's context and bytes (``cache_bytes()``)
+    before its first and after its last step."""
     from torch.profiler import ProfilerActivity, profile
     st = executor.start({"tokens": prompt})
     out = {}
     for phase in ("prefill", "decode"):
+        before = (st.pos, st.cache_bytes())
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -834,6 +996,8 @@ def profile_request(executor, prompt, max_new_tokens: int) -> dict:
         out[phase] = dict(steps=steps, event_ms=start.elapsed_time(end),
                           **_device_breakdown(prof, wall))
         out[phase]["device_ms_per_step"] = out[phase]["device_ms"] / steps
+    out["decode"]["state"] = dict(context=[before[0], st.pos],
+                                  cache_bytes=[before[1], st.cache_bytes()])
     return out
 
 
@@ -909,7 +1073,7 @@ def compiled_kernels(lib_path: Path):
 
 
 PHASES = ("kernels", "gemm", "tiny", "serve", "serve_f32", "path",
-          "serve_moe", "serve_dense")
+          "serve_moe", "serve_dense", "serve_ssm")
 # the kernels line: name, launch counter, source, TPU kernel, headline row
 KERNELS = [
     ("flash_attention_wgmma_bf16", "flash_attention/wgmma",
@@ -986,22 +1150,25 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = []
-    if "kernels" in phases:
-        rows += phase_kernels()
-    if "gemm" in phases:
-        rows += phase_gemm()
-    if "tiny" in phases:
-        phase_tiny()
+    for phase, run in (("kernels", phase_kernels), ("gemm", phase_gemm),
+                       ("tiny", phase_tiny)):
+        if phase in phases:
+            t0 = time.perf_counter()
+            rows += run() or []
+            emit("phase_wall", name=phase, s=time.perf_counter() - t0)
     # each path's launches are counted from 0 and read after it; the
     # kernels line adds up what the paths launched
     launches = _no_launches()
     paths = [("serve", phase_serve), ("serve_f32", phase_serve_f32),
              ("path", phase_gemm_path), ("serve_moe", phase_serve_moe),
-             ("serve_dense", phase_serve_dense)]
+             ("serve_dense", phase_serve_dense),
+             ("serve_ssm", phase_serve_ssm)]
     for phase, run in paths:
         if phase in phases:
+            t0 = time.perf_counter()
             for counter, n in run(card).items():
                 launches[counter] += n
+            emit("phase_wall", name=phase, s=time.perf_counter() - t0)
 
     print(card)
     if set(phases) == set(PHASES):

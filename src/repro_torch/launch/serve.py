@@ -5,7 +5,10 @@ replay a request trace (synthetic or from a JSON file).
         --n-requests 12 --policy prema --mechanism dynamic
 
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--full`` serves the
-full-size configs in place of the tiny ones.
+full-size configs in place of the tiny ones.  Every ported arch is served:
+the dense and MoE decoders, xlstm-350m and the hybrid jamba-1.5-large
+(``--archs xlstm-350m jamba-1.5-large-398b``; jamba tiny only, its full
+size does not fit one card).
 """
 from __future__ import annotations
 

@@ -17,8 +17,11 @@ import torch
 from repro_torch.kernels.preemptible_matmul import MatmulCheckpoint
 
 # leaves the reference keeps in f32 whatever the model dtype: the MoE
-# router (repro/models/moe.py, init_moe)
-F32_LEAVES = frozenset({"router"})
+# router (repro/models/moe.py, init_moe), Mamba's A_log and D, mLSTM's
+# input and forget gates, sLSTM's recurrent weights and bias
+# (repro/models/ssm.py, init_mamba, init_mlstm, init_slstm)
+F32_LEAVES = frozenset({"router", "A_log", "D", "w_i", "w_f", "b_i", "b_f",
+                        "r_zifo", "b_zifo"})
 
 
 def resolve_device(device) -> torch.device:

@@ -2,11 +2,13 @@
 model with preemption points at super-block (period) boundaries during
 prefill and token boundaries during decode.
 
-The execution context held at a boundary — hidden activations, the KV
-cache, generated tokens — is an explicit :class:`ExecState`.  Suspend and
-resume are exact: a preempted-then-resumed run produces bit-identical
-outputs to an uninterrupted one.  Each step runs under
-``torch.inference_mode()``; the decode cache is updated in place.
+The execution context held at a boundary — hidden activations, the
+cache (attention KV buffers, Mamba and xLSTM states), generated tokens —
+is an explicit :class:`ExecState`.  Suspend and resume are exact: a
+preempted-then-resumed run produces bit-identical outputs to an
+uninterrupted one.  Each step runs under ``torch.inference_mode()``; the
+decode cache is updated in place.  Only attention slots grow with the
+context; a recurrent state keeps its size.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ class ExecState:
 
     def context_bytes(self) -> int:
         """Size of the state a CHECKPOINT must preserve: the live
-        activation boundary state; the KV cache stays in device memory."""
+        activation boundary state; the cache stays in device memory."""
         return int(sum(_nbytes(t) for t in (self.h, self.last_logits)
                        if t is not None))
 
@@ -107,22 +109,30 @@ class PreemptibleExecutor:
             st.phase = "decode"
         return st
 
+    def _attn_slots(self) -> List[str]:
+        return [f"slot{i}" for i, (mixer, _) in
+                enumerate(self.cfg.block_pattern) if mixer == "attn"]
+
     def _grow_cache(self, st: ExecState, extra: int) -> None:
-        """Extend the attention KV buffers to hold ``extra`` more tokens."""
+        """Extend the attention KV buffers to hold ``extra`` more tokens;
+        recurrent states are left as they are."""
         def pad(a: torch.Tensor) -> torch.Tensor:
             shape = list(a.shape)
             shape[2] = extra             # (periods, B, T, H, Dh)
             return torch.cat([a, a.new_zeros(shape)], dim=2)
-        st.cache = {name: {k: pad(v) for k, v in slot.items()}
-                    for name, slot in st.cache.items()}
+        for name in self._attn_slots():
+            st.cache[name] = {k: pad(v) for k, v in st.cache[name].items()}
 
     @torch.inference_mode()
     def step_decode(self, st: ExecState) -> ExecState:
-        """Generate one token; boundary afterwards."""
+        """Generate one token; boundary afterwards.  The KV buffers grow
+        when full; a model without attention never grows."""
         assert st.phase == "decode"
-        t_cap = st.cache["slot0"]["k"].shape[2]
-        if st.pos >= t_cap:
-            self._grow_cache(st, max(16, t_cap // 4))
+        attn_slots = self._attn_slots()
+        if attn_slots:
+            t_cap = st.cache[attn_slots[0]]["k"].shape[2]
+            if st.pos >= t_cap:
+                self._grow_cache(st, max(16, t_cap // 4))
         tok = torch.as_tensor(st.tokens_out[-1][:, None],
                               device=self._device())
         logits, st.cache = transformer.decode_step(

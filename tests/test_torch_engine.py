@@ -1,7 +1,8 @@
 """The port's ServingEngine against ``repro.serving.ServingEngine`` on
-bridged weights (tiny olmo-1b with qwen3-8b, and olmo-1b with qwen3-moe as
-the reference's own serving tests mix them; f32), with ``hw=TPU_V5E``
-passed to both: every request result and the summary agree."""
+bridged weights (tiny olmo-1b with qwen3-8b, olmo-1b with qwen3-moe as
+the reference's own serving tests mix them, and xlstm-350m with the hybrid
+jamba-1.5-large; f32), with ``hw=TPU_V5E`` passed to both: every request
+result and the summary agree."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +22,8 @@ torch.set_num_threads(2)
 ARCHS = ("olmo-1b", "qwen3-8b")
 # the reference's tiny_models (tests/test_serving.py)
 MOE_ARCHS = ("olmo-1b", "qwen3-moe-30b-a3b")
+# the two archs with recurrent mixers (jamba also has attention and MoE)
+SSM_ARCHS = ("xlstm-350m", "jamba-1.5-large-398b")
 
 
 def _bridge(archs):
@@ -43,6 +46,11 @@ def moe_models():
     return _bridge(MOE_ARCHS)
 
 
+@pytest.fixture(scope="module")
+def ssm_models():
+    return _bridge(SSM_ARCHS)
+
+
 def _requests(mod, seed, n=8, window=1e-4, archs=ARCHS):
     rng = np.random.default_rng(seed)
     reqs = []
@@ -63,6 +71,8 @@ CASES = [("prema", "dynamic", 1e-4), ("prema", "checkpoint", 1e-6),
 # requests arrive closer together
 MOE_CASES = [("prema", "dynamic", 1e-5), ("prema", "checkpoint", 1e-6),
              ("token", "kill", 1e-4)]
+SSM_CASES = [("prema", "dynamic", 1e-5), ("prema", "checkpoint", 1e-6),
+             ("token", "kill", 1e-4)]
 
 
 @pytest.mark.parametrize("policy,mechanism,window", CASES)
@@ -73,6 +83,11 @@ def test_engine_matches_jax(models, policy, mechanism, window):
 @pytest.mark.parametrize("policy,mechanism,window", MOE_CASES)
 def test_engine_matches_jax_with_moe(moe_models, policy, mechanism, window):
     _check_engines(moe_models, policy, mechanism, window, MOE_ARCHS)
+
+
+@pytest.mark.parametrize("policy,mechanism,window", SSM_CASES)
+def test_engine_matches_jax_with_ssm(ssm_models, policy, mechanism, window):
+    _check_engines(ssm_models, policy, mechanism, window, SSM_ARCHS)
 
 
 def _check_engines(models, policy, mechanism, window, archs):
@@ -119,8 +134,9 @@ def test_engine_defaults_to_h100():
     assert tserving.EngineConfig().hw is H100
 
 
-@pytest.mark.parametrize("archs", [[], ["--archs", "qwen3-moe-30b-a3b"]],
-                         ids=["default", "moe"])
+@pytest.mark.parametrize("archs", [[], ["--archs", "qwen3-moe-30b-a3b"],
+                                   ["--archs", *SSM_ARCHS]],
+                         ids=["default", "moe", "ssm"])
 def test_serve_launcher_runs_on_cpu(capsys, archs):
     serve.main(archs + ["--device", "cpu", "--dtype", "float32",
                         "--n-requests", "4"])

@@ -1,6 +1,7 @@
 """The port's preemptible executor: bit-exact preempt/resume inside the
 port, and tokens and checkpoint sizes equal to the JAX executor's on
-bridged weights (tiny configs, f32)."""
+bridged weights (tiny configs, f32; dense, xlstm-350m and the hybrid
+jamba-1.5-large, whose cache mixes attention KV with Mamba states)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,7 +10,7 @@ import torch
 
 from repro.models import get_model as jax_get_model
 from repro.serving import PreemptibleExecutor as JaxExecutor
-from repro_torch.models import get_model
+from repro_torch.models import get_model, transformer
 from repro_torch.params import params_from_numpy
 from repro_torch.serving import PreemptibleExecutor
 
@@ -24,27 +25,68 @@ def _bridged(name):
                                 params_from_numpy(tree, "cpu")))
 
 
-def test_preempt_resume_bit_exact():
-    model = get_model("qwen3-8b", tiny=True)
-    ex = PreemptibleExecutor(model, model.init_params(
-        generator=torch.Generator().manual_seed(0), dtype=torch.float32,
+def _executor(arch, seed=0):
+    model = get_model(arch, tiny=True)
+    return PreemptibleExecutor(model, model.init_params(
+        generator=torch.Generator().manual_seed(seed), dtype=torch.float32,
         device="cpu"))
-    batch = {"tokens": np.array([[5, 7, 9, 11, 2, 4, 6, 8]], np.int32)}
-    ref = ex.run_uninterrupted(batch, max_new_tokens=6)
-    st = ex.start(batch)
-    while st.phase == "prefill":
-        st = PreemptibleExecutor.restore(PreemptibleExecutor.checkpoint(ex.step(st)))
-    while st.phase == "decode" and len(st.tokens_out) < 6:
-        st = PreemptibleExecutor.restore(PreemptibleExecutor.checkpoint(ex.step(st)))
-    assert np.array_equal(np.stack(ref.tokens_out, 1), np.stack(st.tokens_out, 1))
-    assert torch.equal(ref.last_logits, st.last_logits)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b"])
+def test_preempt_resume_bit_exact():
+    for arch in ("qwen3-8b", "xlstm-350m", "jamba-1.5-large-398b"):
+        ex = _executor(arch)
+        batch = {"tokens": np.array([[5, 7, 9, 11, 2, 4, 6, 8]], np.int32)}
+        ref = ex.run_uninterrupted(batch, max_new_tokens=6)
+        st = ex.start(batch)
+        while st.phase == "prefill":
+            st = PreemptibleExecutor.restore(PreemptibleExecutor.checkpoint(ex.step(st)))
+        while st.phase == "decode" and len(st.tokens_out) < 6:
+            st = PreemptibleExecutor.restore(PreemptibleExecutor.checkpoint(ex.step(st)))
+        assert np.array_equal(np.stack(ref.tokens_out, 1),
+                              np.stack(st.tokens_out, 1)), arch
+        assert torch.equal(ref.last_logits, st.last_logits), arch
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
+def test_preempt_resume_bit_exact_with_another_request_between(arch):
+    """A request preempted after its prefill and again after two decode
+    steps, with a second request run to its end on the same executor in
+    each gap, resumes to the tokens and logits of its uninterrupted run:
+    the recurrent states it holds are its own."""
+    ex = _executor(arch)
+    a = {"tokens": np.array([[5, 7, 9, 11, 2, 4, 6, 8]], np.int32)}
+    b = {"tokens": np.array([[3, 1, 4, 1, 5, 9, 2, 6, 5, 3]], np.int32)}
+    ref_a = ex.run_uninterrupted(a, max_new_tokens=6)
+    ref_b = ex.run_uninterrupted(b, max_new_tokens=4)
+    st = ex.start(a)
+    for n_steps in (ex.n_periods, 2):
+        for _ in range(n_steps):
+            st = ex.step(st)
+        st = PreemptibleExecutor.checkpoint(st)
+        other = ex.run_uninterrupted(b, max_new_tokens=4)
+        assert np.array_equal(np.stack(other.tokens_out, 1),
+                              np.stack(ref_b.tokens_out, 1))
+        st = PreemptibleExecutor.restore(st)
+    assert st.phase == "decode" and len(st.tokens_out) == 3
+    while len(st.tokens_out) < 6:
+        st = ex.step(st)
+    assert np.array_equal(np.stack(ref_a.tokens_out, 1),
+                          np.stack(st.tokens_out, 1))
+    assert torch.equal(ref_a.last_logits, st.last_logits)
+
+
+def _attn_slots(cfg):
+    return [f"slot{i}" for i, (m, _) in enumerate(cfg.block_pattern)
+            if m == "attn"]
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b", "xlstm-350m",
+                                  "jamba-1.5-large-398b"])
 def test_tokens_and_sizes_match_jax_at_every_boundary(arch):
     """20 tokens from an 8-token prompt: the KV buffers grow twice (at
-    pos 8 and 24)."""
+    pos 8 and 24); xlstm-350m has none, and its cache keeps its size."""
     jex, tex = _bridged(arch)
+    attn = _attn_slots(tex.cfg)
     prompt = np.random.default_rng(5).integers(1, 250, (1, 8)).astype(np.int32)
     js, ts = jex.start({"tokens": jnp.asarray(prompt)}), tex.start({"tokens": prompt})
     caps = []
@@ -54,12 +96,13 @@ def test_tokens_and_sizes_match_jax_at_every_boundary(arch):
         assert ts.context_bytes() == js.context_bytes()
         assert ts.cache_bytes() == js.cache_bytes()
         if ts.phase == "decode":
-            caps.append(ts.cache["slot0"]["k"].shape[2])
+            caps.append(ts.cache[attn[0]]["k"].shape[2] if attn
+                        else ts.cache_bytes())
             np.testing.assert_allclose(ts.last_logits.numpy(),
                                        np.asarray(js.last_logits),
                                        rtol=2e-4, atol=2e-4)
     assert np.array_equal(np.stack(ts.tokens_out, 1), np.stack(js.tokens_out, 1))
-    assert sorted(set(caps)) == [8, 24, 40]
+    assert len(set(caps)) == 1 if not attn else sorted(set(caps)) == [8, 24, 40]
 
 
 def test_grow_cache_keeps_contents():
@@ -77,3 +120,41 @@ def test_grow_cache_keeps_contents():
         assert new.shape[2] == old.shape[2] + 16
         assert torch.equal(new[:, :, :8], old)
         assert not new[:, :, 8:].any()
+
+
+def test_decode_past_capacity_grows_attention_only():
+    """Tiny jamba: a decode at pos == capacity pads its attention slot's
+    K/V by 16 positions, keeping their contents, and leaves every Mamba
+    slot's leaves with their shapes and the values the step computes
+    from them (equal to a step on a cache that was never grown)."""
+    ex = _executor("jamba-1.5-large-398b", seed=1)
+    st = ex.start({"tokens": np.arange(1, 9, dtype=np.int32)[None]})
+    while st.phase == "prefill":
+        st = ex.step(st)
+    attn = _attn_slots(ex.cfg)
+    assert attn == ["slot4"]
+    before = {slot: {k: v.clone() for k, v in leaves.items()}
+              for slot, leaves in st.cache.items()}
+    twin = {slot: {k: v.clone() for k, v in leaves.items()}
+            for slot, leaves in st.cache.items()}
+    assert st.pos == before["slot4"]["k"].shape[2] == 8
+    st = ex.step_decode(st)
+    tok = torch.as_tensor(st.tokens_out[-2][:, None])
+    for slot in twin:          # the same step on a cache padded by hand
+        if slot in attn:
+            twin[slot] = {k: torch.cat([v, v.new_zeros(v.shape[:2] + (16,)
+                                                       + v.shape[3:])], 2)
+                          for k, v in twin[slot].items()}
+    logits, twin = transformer.decode_step(ex.params, twin, tok, 8, ex.cfg)
+    assert torch.equal(logits, st.last_logits)
+    for slot, leaves in before.items():
+        for name, old in leaves.items():
+            new = st.cache[slot][name]
+            if slot in attn:
+                assert new.shape[2] == old.shape[2] + 16
+                assert torch.equal(new[:, :, :8], old)
+                assert not new[:, :, 9:].any()
+            else:
+                assert new.shape == old.shape, (slot, name)
+                assert not torch.equal(new, old), (slot, name)
+            assert torch.equal(new, twin[slot][name]), (slot, name)

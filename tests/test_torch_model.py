@@ -1,8 +1,9 @@
 """The port's model against ``repro.models`` on bridged weights (tiny
-configs, f32; the dense archs and the two MoE archs): prefill and decode
-logits at 2e-4, prefill beyond 2048 keys (the reference's chunked
-attention) at 2e-4, prefill against incremental decode inside the port at
-2e-3, cache sizes exactly."""
+configs, f32; the dense archs, the two MoE archs, xlstm-350m and the
+hybrid jamba-1.5-large): prefill and decode logits and every cache leaf at
+2e-4, prefill beyond 2048 keys (the reference's chunked attention) at
+2e-4, prefill against incremental decode inside the port at 2e-3, cache
+sizes exactly."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,13 +19,15 @@ from repro_torch.params import params_from_numpy
 torch.set_num_threads(2)
 DENSE = ["olmo-1b", "qwen3-8b", "qwen1.5-4b", "deepseek-coder-33b"]
 MOE = ["qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"]
+SSM = ["xlstm-350m", "jamba-1.5-large-398b"]
 TOL = 2e-4
 
 
 def bridged_params(name, seed=0):
-    """JAX init_params with its constant leaves (biases, norm scales)
-    replaced by random values, as numpy; the same tree feeds both
-    packages."""
+    """JAX init_params with its constant leaves (biases, norm scales, the
+    recurrent mixers' dt_bias, D and gate biases) replaced by random
+    values, as numpy; the same tree feeds both packages.  A_log keeps its
+    values, so A = -exp(A_log) stays negative."""
     model = jax_get_model(name, tiny=True)
     tree = jax.tree.map(np.asarray, model.init_params(jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(seed)
@@ -33,6 +36,9 @@ def bridged_params(name, seed=0):
         name = getattr(path[-1], "key", "")
         if name in ("bq", "bk", "bv", "bias"):
             return rng.standard_normal(leaf.shape).astype(leaf.dtype) * 0.1
+        if name in ("dt_bias", "D", "b_i", "b_f", "b_zifo"):
+            return (leaf + 0.3 * rng.standard_normal(leaf.shape)).astype(
+                leaf.dtype)
         if name in ("scale", "q_norm", "k_norm"):
             return (1 + 0.1 * rng.standard_normal(leaf.shape)).astype(leaf.dtype)
         return leaf
@@ -43,7 +49,22 @@ def _tokens(cfg, s, seed=1):
     return np.random.default_rng(seed).integers(1, cfg.vocab_size, (1, s)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+def _assert_caches_close(got, ref, tol, prefix=None):
+    """Every leaf of two stacked caches; ``prefix`` cuts the reference's
+    attention leaves to their first ``prefix`` positions."""
+    assert sorted(got) == sorted(ref)
+    for slot, leaves in ref.items():
+        assert sorted(got[slot]) == sorted(leaves)
+        for name, r in leaves.items():
+            r = np.asarray(r)
+            g = got[slot][name].numpy()
+            if prefix is not None and name in ("k", "v"):
+                g = g[:, :, :prefix]
+            np.testing.assert_allclose(g, r, rtol=tol, atol=tol,
+                                       err_msg=f"{slot}/{name}")
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 def test_prefill_and_decode_match_jax(arch):
     jmodel, tree = bridged_params(arch)
     cfg = jmodel.cfg
@@ -62,11 +83,12 @@ def test_prefill_and_decode_match_jax(arch):
         lj, cj = step(jp, cj, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
         lt, ct = tt.decode_step(tp, ct, torch.from_numpy(toks[:, t:t + 1]), t, tcfg)
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=TOL, atol=TOL)
-    np.testing.assert_allclose(ct["slot0"]["k"].numpy(), np.asarray(cj["slot0"]["k"]),
-                               rtol=TOL, atol=TOL)
+    # attention's K/V and every recurrent state (Mamba, mLSTM, sLSTM)
+    _assert_caches_close(ct, jax.tree.map(np.asarray, cj), TOL)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b", "qwen3-moe-30b-a3b"]
+                         + SSM)
 def test_prefill_matches_incremental_decode(arch):
     model = get_model(arch, tiny=True)
     cfg = model.cfg
@@ -78,11 +100,10 @@ def test_prefill_matches_incremental_decode(arch):
     for t in range(toks.shape[1]):
         logits, cache = model.decode_step(params, cache, toks[:, t:t + 1], t)
     torch.testing.assert_close(logits, logits_pre, rtol=2e-3, atol=2e-3)
-    torch.testing.assert_close(cache["slot0"]["k"][:, :, :8], cache_pre["slot0"]["k"],
-                               rtol=2e-3, atol=2e-3)
+    _assert_caches_close(cache, cache_pre, 2e-3, prefix=8)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cache_bytes_match_jax(arch, dtype):
     jcfg = jax_get_model(arch).cfg
@@ -110,14 +131,15 @@ def test_long_prefill_matches_jax(arch):
 
 
 def test_init_params_shapes_match_jax():
-    jmodel = jax_get_model("qwen1.5-4b", tiny=True)
-    ref = jax.tree.map(lambda a: (a.shape, str(a.dtype)),
-                       jax.eval_shape(jmodel.init_params, jax.random.PRNGKey(0)))
-    got = tt.tree_map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[1]),
-                      get_model("qwen1.5-4b", tiny=True).init_params(
-                          generator=torch.Generator().manual_seed(0),
-                          dtype=torch.float32, device="cpu"))
-    assert got == ref
+    for arch in ["qwen1.5-4b"] + SSM:
+        jmodel = jax_get_model(arch, tiny=True)
+        ref = jax.tree.map(lambda a: (a.shape, str(a.dtype)), jax.eval_shape(
+            jmodel.init_params, jax.random.PRNGKey(0)))
+        got = tt.tree_map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[1]),
+                          get_model(arch, tiny=True).init_params(
+                              generator=torch.Generator().manual_seed(0),
+                              dtype=torch.float32, device="cpu"))
+        assert got == ref, arch
 
 
 def test_bridge_keeps_bf16_bits():
@@ -128,8 +150,7 @@ def test_bridge_keeps_bf16_bits():
     assert np.array_equal(t.view(torch.int16).numpy(), a.view(np.int16))
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b",
-                                  "llama-3.2-vision-11b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "hubert-xlarge"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(arch, tiny=True)
