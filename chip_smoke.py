@@ -16,7 +16,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    flash runs its wgmma kernel in bf16 and its CUDA-core kernel in f32,
    and the CUDA-core kernel also at D 80 and 64; decode also at
    deepseek-coder-33b's Hq 56; both in bf16 also at qwen3-moe-30b-a3b's
-   Hq 32 over Hkv 4, decode's group of 8), with kernel, plain and
+   Hq 32 over Hkv 4, decode's group of 8; in bf16 also at
+   llama-3.2-vision-11b's cross-attention: flash non-causal at S 37 and
+   2048 against T 1600 image keys, decode at T 1600, pos 1599), with
+   kernel, plain and
    library (SDPA, a yardstick the port never calls) times by CUDA events
    and the card's bound; for decode also device times from CUDA-graph
    replays, a bitwise run-to-run check, and one call with a device
@@ -29,11 +32,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    strides, bitwise equal to one launch; timed at full width beside
    cuBLAS;
 4. tiny qwen3-8b, olmo-1b, deepseek-coder-33b, qwen3-moe-30b-a3b,
-   phi3.5-moe-42b-a6.6b, xlstm-350m and jamba-1.5-large-398b (its
-   attention at slot 4, beside Mamba states) in f32 on the card against
-   the same weights on the CPU, with each model's kernel launches and the
-   MoE router's least top-k margin on the CPU (a routing flip shows as a
-   large error);
+   phi3.5-moe-42b-a6.6b, xlstm-350m, jamba-1.5-large-398b (its
+   attention at slot 4, beside Mamba states), llama-3.2-vision-11b (with
+   image embeddings) and hubert-xlarge (frames; its logits at every
+   position, no decode) in f32 on the card against the same weights on
+   the CPU, with each model's kernel launches and the MoE router's least
+   top-k margin on the CPU (a routing flip shows as a large error);
 5. the serving path: the PREMA ``ServingEngine`` serving 8 requests on
    full-width qwen3-8b in bf16, checked against isolated runs, with the
    kernels' launch counts, per kernel variant, checked against the
@@ -57,7 +61,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
     checked as in 5 with no attention kernel launched, its decode state's
     bytes equal from first to last token; then jamba-1.5-large's Mamba mixer
     alone at full width: its chunk carry against decode in f32, card
-    against CPU, and bf16 prefill and decode times.
+    against CPU, and bf16 prefill and decode times;
+11. the vision and audio models (``serve_vlm_audio``): 4 requests on
+    full-width llama-3.2-vision-11b in bf16 (19.6 GB of weights; each
+    request with image embeddings of 1600 x 1280, the first prompt of 2048
+    tokens), checked as in 5 with flash launched 5 times a prefill step
+    (4 self-attention, 1 cross-attention) and the image K/V at 1600
+    positions from the first token to the last; then 3 requests of frames
+    on full-width hubert-xlarge in bf16 (the first of 2048), each done
+    after its prefill with no token, its logits at every position equal
+    bit for bit to its isolated run's, flash once a prefill step on the
+    CUDA-core kernel at D 80, and no decode.
 
 Each serving phase also holds its profiled prefill's device time against
 CUDA events around the same prefill.  Then a ``{"kernels": [...]}`` line
@@ -113,6 +127,8 @@ GEMM_SHAPES = [(128, 128, 128), (256, 384, 512), (100, 200, 300),
                (64, 1000, 72), (1, 129, 1), (257, 64, 130)]
 TINY_TOL = 1e-4
 B, HQ, HKV, D = 1, 32, 8, 128
+IMG_T = 1600                                  # llama-3.2-vision-11b's image
+                                              # tokens
 L2_BYTES = 50 * 2**20
 
 
@@ -211,15 +227,18 @@ def _model_layout(gen, b, t, h, d, dtype):
     return x.transpose(1, 2)
 
 
-def flash_case(gen, dtype, s, causal, d=D, hkv=HKV):
+def flash_case(gen, dtype, s, causal, d=D, hkv=HKV, t=None, hq=HQ):
+    """S queries against T keys (T = S unless given: cross-attention's
+    S != T is non-causal)."""
     from repro_torch.kernels.flash_attention import (bf16_tolerance,
                                                      flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_attention.ops import kernel_variant
     F = torch.nn.functional
-    q = _model_layout(gen, B, s, HQ, d, dtype)
-    k = _model_layout(gen, B, s, hkv, d, dtype)
-    v = _model_layout(gen, B, s, hkv, d, dtype)
+    t = s if t is None else t
+    q = _model_layout(gen, B, s, hq, d, dtype)
+    k = _model_layout(gen, B, t, hkv, d, dtype)
+    v = _model_layout(gen, B, t, hkv, d, dtype)
     out = flash_attention(q, k, v, causal)
     ref = flash_attention_plain(*as_f32(q, k, v), causal)
     variant = kernel_variant(dtype, d)
@@ -230,16 +249,16 @@ def flash_case(gen, dtype, s, causal, d=D, hkv=HKV):
     ratio = over_tol(out, ref, bound)
     torch.cuda.synchronize()
     err = max_err(out, ref)
-    sets = [(q, k, v)] + [tuple(_model_layout(gen, B, s, h, d, dtype)
-                                for h in (HQ, hkv, hkv))
+    sets = [(q, k, v)] + [tuple(_model_layout(gen, B, n, h, d, dtype)
+                                for n, h in ((s, hq), (t, hkv), (t, hkv)))
                           for _ in range(n_copies(nbytes(q, k, v)) - 1)]
-    pairs = s * (s + 1) // 2 if causal else s * s
-    ops = 4 * B * HQ * d * pairs
+    pairs = s * (s + 1) // 2 if causal else s * t
+    ops = 4 * B * hq * d * pairs
     moved = nbytes(q, k, v, out)
     t_ops, t_bytes = ops / PEAK_OPS[dtype], moved / HBM_BYTES_PER_S
     row = dict(
         kernel="flash_attention", variant=variant,
-        dtype=str(dtype).split(".")[1], D=d, Hkv=hkv, S=s, T=s,
+        dtype=str(dtype).split(".")[1], D=d, Hq=hq, Hkv=hkv, S=s, T=t,
         causal=causal,
         max_abs_err=err, tolerance=tol_name, err_over_tol=ratio,
         ok=ratio <= 1.0,
@@ -355,6 +374,18 @@ def phase_kernels():
     rows.append(flash_case(gen, torch.bfloat16, 2048, True, hkv=4))
     emit("kernel_check", **rows[-1])
     rows.append(decode_case(gen, torch.bfloat16, 2560, 2048, hkv=4))
+    emit("kernel_check", **rows[-1])
+    # llama-3.2-vision-11b's cross-attention: a text prompt against its
+    # 1600 image keys (both sides ragged at S 37), and decode over all of
+    # them
+    for s in (37, 2048):
+        rows.append(flash_case(gen, torch.bfloat16, s, False, t=IMG_T))
+        emit("kernel_check", **rows[-1])
+    rows.append(decode_case(gen, torch.bfloat16, IMG_T, IMG_T - 1))
+    emit("kernel_check", **rows[-1])
+    # hubert-xlarge's prefill: 16 heads of 80, non-causal, 2048 frames
+    rows.append(flash_case(gen, torch.bfloat16, 2048, False, 80, hkv=16,
+                           hq=16))
     emit("kernel_check", **rows[-1])
     graphs = [decode_graph_case(gen, dtype)
               for dtype in (torch.bfloat16, torch.float32)]
@@ -496,15 +527,31 @@ def router_margins(margins: list):
 def phase_tiny():
     out = {name: tiny_card_vs_cpu(name) for name in (
         "qwen3-8b", "olmo-1b", "deepseek-coder-33b", "qwen3-moe-30b-a3b",
-        "phi3.5-moe-42b-a6.6b", "xlstm-350m", "jamba-1.5-large-398b")}
+        "phi3.5-moe-42b-a6.6b", "xlstm-350m", "jamba-1.5-large-398b",
+        "llama-3.2-vision-11b", "hubert-xlarge")}
     emit("tiny_card_vs_cpu", dtype="float32", **out)
+
+
+def model_inputs(cfg, prompt, rng) -> dict:
+    """The batch the engine hands a model: ``prompt``'s tokens, or frames
+    of as many positions for frame inputs; image embeddings for a VLM
+    (numpy f32 from ``rng``)."""
+    b, s = prompt.shape
+    if cfg.embedding_inputs:
+        return {"frames": rng.standard_normal((b, s, cfg.d_model),
+                                              dtype=np.float32)}
+    batch = {"tokens": prompt}
+    if cfg.img_tokens:
+        batch["img_embeds"] = rng.standard_normal(
+            (b, cfg.img_tokens, cfg.d_vision), dtype=np.float32)
+    return batch
 
 
 def tiny_card_vs_cpu(name: str) -> dict:
     """Prefill and 8 teacher-forced decode steps of tiny ``name`` in f32,
     on the card and on the CPU from the same weights, with the card's
     kernel launches; for an MoE also the router's least top-k margin on
-    the CPU."""
+    the CPU; for the encoder-only model its logits at every position."""
     from repro_torch.models import get_model
     from repro_torch.models.transformer import tree_map
     from repro_torch.params import params_from_numpy
@@ -516,16 +563,19 @@ def tiny_card_vs_cpu(name: str) -> dict:
     gpu = params_from_numpy(tree_map(lambda x: x.numpy(), cpu), "cuda")
     prompt = np.random.default_rng(2).integers(
         1, model.cfg.vocab_size, (1, 12)).astype(np.int32)
+    batch = model_inputs(model.cfg, prompt, np.random.default_rng(3))
     ex_c = PreemptibleExecutor(model, cpu)
     ex_g = PreemptibleExecutor(model, gpu)
     margins = []
     _reset_launches()
     with router_margins(margins):
-        sc, sg = ex_c.start({"tokens": prompt}), ex_g.start({"tokens": prompt})
+        sc, sg = ex_c.start(batch), ex_g.start(batch)
         while sc.phase == "prefill":
             sc, sg = ex_c.step_prefill(sc), ex_g.step_prefill(sg)
         err, compared, differs = 0.0, 0, []
-        for step in range(8):
+        if sc.phase == "done":       # encoder-only: logits everywhere
+            err = max_err(sc.last_logits, sg.last_logits.cpu())
+        for step in range(8 if sc.phase == "decode" else 0):
             lc, lg = sc.last_logits.float(), sg.last_logits.float().cpu()
             err = max(err, max_err(lc, lg))
             top2 = torch.topk(lc[0, -1], 2).values
@@ -553,7 +603,8 @@ def tiny_card_vs_cpu(name: str) -> dict:
 def make_requests(cfg, hw, n: int, seed: int, first_len=None):
     """``n`` requests from ``seed``; with ``first_len``, the first prompt
     is replaced by one of that many tokens (from ``seed + 1``) and every
-    other draw stays as it was."""
+    other draw stays as it was.  A VLM's image embeddings and an audio
+    model's frames are drawn from ``seed + 2``."""
     from repro_torch.core import arch_ops
     from repro_torch.core.predictor import network_time
     from repro_torch.serving import InferenceRequest
@@ -573,6 +624,10 @@ def make_requests(cfg, hw, n: int, seed: int, first_len=None):
             max_new_tokens=32, priority=int(rng.choice([1, 3, 9])),
             arrival=float(rng.uniform(0, window)),
             true_decode_len=int(rng.integers(8, 33))))
+    payload = np.random.default_rng(seed + 2)
+    for q in reqs:
+        batch = model_inputs(cfg, q.prompt, payload)
+        q.img_embeds, q.frames = batch.get("img_embeds"), batch.get("frames")
     return reqs, window
 
 
@@ -625,18 +680,42 @@ def _no_launches():
     return dict.fromkeys(_launches(), 0)
 
 
+def _capture_final_logits(executor, reqs, final: dict) -> None:
+    """Wrap the executor's ``start`` and ``step_prefill`` (frame inputs):
+    ``final[rid]`` gets a copy of the logits of request ``rid``'s state at
+    the step that ends in phase ``done``.  A request is known by its
+    frames, which the engine hands over as they are."""
+    start, step, owner = executor.start, executor.step_prefill, {}
+
+    def started(batch):
+        st = start(batch)
+        owner[id(st)] = (st, next(q.rid for q in reqs
+                                  if q.frames is batch["frames"]))
+        return st
+
+    def stepped(st):
+        st = step(st)
+        if st.phase == "done" and id(st) in owner:
+            final[owner[id(st)][1]] = st.last_logits.clone()
+        return st
+    executor.start, executor.step_prefill = started, stepped
+
+
 def _check_launches(cfg, dtype, counts, where):
     """Prefill launches all on the flash kernel of this dtype and head
-    width, none on the other; decode once per layer and step."""
+    width, none on the other, once per self- or cross-attention block and
+    period; decode once per such block and step; an encoder-only model
+    never decodes."""
     from repro_torch.kernels.flash_attention.ops import kernel_variant
-    attn_slots = sum(m == "attn" for m, _ in cfg.block_pattern)
+    attn_slots = sum(m in ("attn", "cross_attn") for m, _ in cfg.block_pattern)
     flash = f"flash_attention/{kernel_variant(dtype, cfg.d_head)}"
     expect = {**_no_launches(),
               flash: counts["prefill"] * attn_slots,
               "decode_attention": counts["decode"] * attn_slots
               * cfg.n_periods}
     got = _launches()
-    if got != expect or min(counts.values()) == 0:
+    if (got != expect or counts["prefill"] == 0
+            or (counts["decode"] == 0) != cfg.encoder_only):
         raise SystemExit(f"{where}: kernel launches {got}, expected {expect} "
                          f"from step counts {counts}")
     copies = _counters()["decode_attention"].layout_copies
@@ -657,6 +736,9 @@ def serve_and_check(model, params, dtype, reqs, sync):
     executor = engine._executors[cfg.name]
     counts = {"prefill": 0, "decode": 0}
     _count_steps(executor, counts)
+    final = {}
+    if cfg.encoder_only:
+        _capture_final_logits(executor, reqs, final)
 
     _reset_launches()
     t0 = time.perf_counter()
@@ -665,6 +747,7 @@ def serve_and_check(model, params, dtype, reqs, sync):
     wall = time.perf_counter() - t0
     engine_launches = _check_launches(cfg, dtype, counts, "engine run")
     engine_steps = dict(counts)
+    engine_logits = dict(final)    # the isolated runs below add their own
     if len(results) != len(reqs):
         raise SystemExit(f"{len(results)} of {len(reqs)} requests completed")
     if sum(r.n_preemptions + r.n_kills for r in results) < 1:
@@ -676,10 +759,16 @@ def serve_and_check(model, params, dtype, reqs, sync):
     for r in results:
         req = next(q for q in reqs if q.rid == r.rid)
         n = r.tokens.shape[1]
-        iso = executor.run_uninterrupted({"tokens": req.prompt},
+        iso = executor.run_uninterrupted(engine._batch_dict(req),
                                          max_new_tokens=n)
-        if n < 1 or not np.array_equal(np.stack(iso.tokens_out[:n], 1),
-                                       r.tokens):
+        if cfg.encoder_only:
+            # no token: the engine run's logits at every position must
+            # equal the isolated run's bit for bit
+            if n or not torch.equal(engine_logits[r.rid], iso.last_logits):
+                raise SystemExit(f"request {r.rid}: {n} tokens, or logits "
+                                 "that differ from its isolated run")
+        elif n < 1 or not np.array_equal(np.stack(iso.tokens_out[:n], 1),
+                                         r.tokens):
             raise SystemExit(f"request {r.rid}: tokens differ from its "
                              "isolated run")
         if not bool(torch.isfinite(iso.last_logits.float()).all()):
@@ -693,7 +782,9 @@ def serve_and_check(model, params, dtype, reqs, sync):
         checks=dict(requests=len(results),
                     preemptions=sum(r.n_preemptions for r in results),
                     kills=sum(r.n_kills for r in results),
-                    tokens_equal_isolated=True, engine_steps=engine_steps,
+                    **({"logits_equal_isolated": True} if cfg.encoder_only
+                       else {"tokens_equal_isolated": True}),
+                    engine_steps=engine_steps,
                     engine_launches=engine_launches,
                     isolated_steps=dict(counts),
                     isolated_launches=iso_launches))
@@ -742,7 +833,7 @@ def phase_serve(card: str, arch: str = "qwen3-8b", dtype=torch.bfloat16,
          tokens_per_s=run["generated_tokens"] / run["wall_s"],
          isolated_runs_wall_s=run["isolated_wall_s"])
     longest = max(reqs, key=lambda q: q.prompt.shape[1])
-    prof = profile_request(run["executor"], longest.prompt,
+    prof = profile_request(run["executor"], run["engine"]._batch_dict(longest),
                            longest.max_new_tokens)
     emit("serve_profile", card=card, model=cfg.name, dtype=name,
          prompt_len=int(longest.prompt.shape[1]), **prof)
@@ -757,11 +848,20 @@ def phase_serve(card: str, arch: str = "qwen3-8b", dtype=torch.bfloat16,
          profile_over_events=pre["device_ms"] / pre["event_ms"],
          profile_within_events=pre["device_ms"] <= pre["event_ms"] * 1.001,
          flash_ms=flash, flash_share_of_device=flash / pre["device_ms"])
+    if cfg.encoder_only:
+        return run["checks"]["engine_launches"]
     state = prof["decode"]["state"]
     recurrent = all(m != "attn" for m, _ in cfg.block_pattern)
     if recurrent and len(set(state["cache_bytes"])) != 1:
         raise SystemExit(f"{cfg.name}: the decode state's size depends on "
                          f"the context: {state}")
+    first, last = state["kv_positions"]
+    if "cross_attn" in first and not (
+            first["cross_attn"] == last["cross_attn"] == cfg.img_tokens
+            and last["attn"] > first["attn"]):
+        raise SystemExit(f"{cfg.name}: the image K/V must hold img_tokens "
+                         "positions from the first token to the last while "
+                         f"the self-attention K/V grow: {state}")
     return run["checks"]["engine_launches"]
 
 
@@ -815,6 +915,31 @@ def phase_serve_ssm(card: str):
     torch.cuda.empty_cache()
     mamba_full_width(card)
     return launches
+
+
+def phase_serve_vlm_audio(card: str):
+    """(a) Full-width llama-3.2-vision-11b (40 layers, d_model 4096, 32
+    query heads over 8 KV heads, cross-attention at slot 4 of 5; 19.6 GB
+    of weights) in bf16: 4 requests, the first with a 2048-token prompt,
+    each with image embeddings (1, 1600, 1280); checked as in 5, with
+    flash launched 5 times a prefill step (4 self, 1 cross, all wgmma),
+    decode 40 times a decode step, and the profiled request's image K/V at
+    1600 positions from its first token to its last while its
+    self-attention K/V grow.
+    (b) Full-width hubert-xlarge (48 layers, d_model 1280, 16 heads of 80,
+    GELU, vocab 504) in bf16: 3 requests of frames, the first of 2048;
+    each done after its prefill with no token and its engine run's logits
+    at every position equal bit for bit to its isolated run's; flash
+    once a prefill step, all on the CUDA-core kernel (D 80), no decode.
+    Every earlier model is freed first."""
+    total = _no_launches()
+    for arch, n in (("llama-3.2-vision-11b", 4), ("hubert-xlarge", 3)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        for counter, k in phase_serve(card, arch, n_requests=n,
+                                      first_len=2048).items():
+            total[counter] += k
+    return total
 
 
 CARRY_TOL = 2e-3     # prefill against incremental decode, as in
@@ -969,17 +1094,28 @@ def _device_breakdown(prof, wall_s: float) -> dict:
                      for k, (ms, n) in top[:6]])
 
 
-def profile_request(executor, prompt, max_new_tokens: int) -> dict:
+def _kv_positions(st, cfg) -> dict:
+    """Positions the decode cache holds, per kind of attention slot."""
+    return {m: st.cache[f"slot{i}"]["k"].shape[2]
+            for i, (m, _) in enumerate(cfg.block_pattern)
+            if m in ("attn", "cross_attn")}
+
+
+def profile_request(executor, batch: dict, max_new_tokens: int) -> dict:
     """Device time by kernel family (``torch.profiler``, CUDA activity
     only) for the prefill and then the decode of one isolated request,
     beside the span of CUDA events recorded around the same steps; for
-    the decode also its state's context and bytes (``cache_bytes()``)
-    before its first and after its last step."""
+    the decode also its state's context, bytes (``cache_bytes()``) and
+    attention positions per slot kind before its first and after its last
+    step.  An encoder-only model has no decode."""
     from torch.profiler import ProfilerActivity, profile
-    st = executor.start({"tokens": prompt})
+    st = executor.start(batch)
     out = {}
     for phase in ("prefill", "decode"):
-        before = (st.pos, st.cache_bytes())
+        if st.phase != phase:
+            break
+        before = (st.pos, st.cache_bytes(), _kv_positions(st, executor.cfg)
+                  if st.cache is not None else {})
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -996,8 +1132,11 @@ def profile_request(executor, prompt, max_new_tokens: int) -> dict:
         out[phase] = dict(steps=steps, event_ms=start.elapsed_time(end),
                           **_device_breakdown(prof, wall))
         out[phase]["device_ms_per_step"] = out[phase]["device_ms"] / steps
-    out["decode"]["state"] = dict(context=[before[0], st.pos],
-                                  cache_bytes=[before[1], st.cache_bytes()])
+    if "decode" in out:
+        out["decode"]["state"] = dict(
+            context=[before[0], st.pos],
+            cache_bytes=[before[1], st.cache_bytes()],
+            kv_positions=[before[2], _kv_positions(st, executor.cfg)])
     return out
 
 
@@ -1073,7 +1212,7 @@ def compiled_kernels(lib_path: Path):
 
 
 PHASES = ("kernels", "gemm", "tiny", "serve", "serve_f32", "path",
-          "serve_moe", "serve_dense", "serve_ssm")
+          "serve_moe", "serve_dense", "serve_ssm", "serve_vlm_audio")
 # the kernels line: name, launch counter, source, TPU kernel, headline row
 KERNELS = [
     ("flash_attention_wgmma_bf16", "flash_attention/wgmma",
@@ -1162,7 +1301,8 @@ def main(argv=None) -> int:
     paths = [("serve", phase_serve), ("serve_f32", phase_serve_f32),
              ("path", phase_gemm_path), ("serve_moe", phase_serve_moe),
              ("serve_dense", phase_serve_dense),
-             ("serve_ssm", phase_serve_ssm)]
+             ("serve_ssm", phase_serve_ssm),
+             ("serve_vlm_audio", phase_serve_vlm_audio)]
     for phase, run in paths:
         if phase in phases:
             t0 = time.perf_counter()

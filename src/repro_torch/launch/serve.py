@@ -5,10 +5,15 @@ replay a request trace (synthetic or from a JSON file).
         --n-requests 12 --policy prema --mechanism dynamic
 
 Runs on ``cuda`` unless ``--device cpu`` is given; ``--full`` serves the
-full-size configs in place of the tiny ones.  Every ported arch is served:
-the dense and MoE decoders, xlstm-350m and the hybrid jamba-1.5-large
-(``--archs xlstm-350m jamba-1.5-large-398b``; jamba tiny only, its full
-size does not fit one card).
+full-size configs in place of the tiny ones.  The synthetic and JSON
+requests are token prompts, as the reference launcher's are, so the archs
+they serve are the token decoders: the dense and MoE ones, xlstm-350m and
+the hybrid jamba-1.5-large (``--archs xlstm-350m jamba-1.5-large-398b``;
+jamba tiny only, its full size does not fit one card).  The VLM
+llama-3.2-vision-11b and the encoder-only hubert-xlarge need image
+embeddings or frames with each request: ``ServingEngine.run`` takes them
+from a serving trace (``repro_torch.workloads.serving_adapter`` draws
+them from each record's seed) or from requests that carry them.
 """
 from __future__ import annotations
 

@@ -1,14 +1,15 @@
-"""GQA self-attention (port of ``repro/models/attention.py``, prefill and
-decode).
+"""GQA self-attention and cross-attention (port of
+``repro/models/attention.py``, prefill and decode).
 
-Attention itself runs through the port's kernels: prefill through
-``flash_attention`` and decode through ``decode_attention``, whose plain
-versions take their place on the CPU.  They replace the reference's
-``_dense_attend``/``_chunked_attend``/``_gqa_attend``.  One deliberate
-difference in bf16: the reference model casts the probabilities to
-``q.dtype`` before PV; the kernels (the TPU ones included) keep them in
-f32, and the port follows the kernels.  In f32 the two are the same.
-Cross-attention waits for the VLM slice.
+Attention itself runs through the port's kernels: prefill (self and
+cross) through ``flash_attention`` and decode through ``decode_attention``,
+whose plain versions take their place on the CPU.  They replace the
+reference's ``_dense_attend``/``_chunked_attend``/``_gqa_attend``.  One
+deliberate difference in bf16: the reference model casts the
+probabilities to ``q.dtype`` before PV; the decode kernel and the
+CUDA-core flash kernel (the TPU ones too) keep them in f32, and the port
+follows the kernels, in cross-attention as in self-attention.  In f32 the
+two are the same.
 """
 from __future__ import annotations
 
@@ -56,17 +57,32 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _project_qkv(x, p, cfg: ArchConfig, positions):
-    """x: (B,S,D); positions: (B or 1, S), shared by queries and keys."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _project_q(x, p, cfg: ArchConfig):
+    """Queries of x (B,S,D), with bias and qk-norm, before RoPE."""
+    q = _proj(x, p["wq"])
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
     if cfg.qk_norm:
         q = rms_norm_head(q, p["q_norm"])
+    return q
+
+
+def _project_kv(src, p, cfg: ArchConfig):
+    """Keys and values of src (B,T,D), with bias and qk-norm, before
+    RoPE."""
+    k, v = _proj(src, p["wk"]), _proj(src, p["wv"])
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
         k = rms_norm_head(k, p["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return k, v
+
+
+def _project_qkv(x, p, cfg: ArchConfig, positions):
+    """x: (B,S,D); positions: (B or 1, S), shared by queries and keys."""
+    q = apply_rope(_project_q(x, p, cfg), positions, cfg.rope_theta)
+    k, v = _project_kv(x, p, cfg)
+    return q, apply_rope(k, positions, cfg.rope_theta), v
 
 
 def attn_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
@@ -97,4 +113,30 @@ def attn_decode(x: torch.Tensor, p: Params, cfg: ArchConfig, cache: Params,
     cache["v"][:, pos] = v_new[:, 0]
     out = decode_attention(q[:, 0], cache["k"].transpose(1, 2),
                            cache["v"].transpose(1, 2), pos)
+    return _out_proj(out[:, None], p["wo"]), cache
+
+
+# --------------------------------------------------------------------------
+# Cross-attention (VLM image layers): queries from the text, keys and values
+# from the projected image states; no RoPE, no mask
+# --------------------------------------------------------------------------
+def cross_attn_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig,
+                       img_h: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """x: (B,S,D) text; img_h: (B,Timg,D).  Returns the output and the
+    static image KV cache (B,Timg,Hkv,Dh) (the reference's
+    ``cross_attn_forward`` and ``cross_attn_kv``)."""
+    q = _project_q(x, p, cfg)
+    k, v = _project_kv(img_h, p, cfg)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=False)
+    return _out_proj(out.transpose(1, 2), p["wo"]), {"k": k, "v": v}
+
+
+def cross_attn_decode(x: torch.Tensor, p: Params, cfg: ArchConfig,
+                      cache: Params) -> Tuple[torch.Tensor, Params]:
+    """One-token decode over every image position of the static cache,
+    which it returns unchanged."""
+    q = _project_q(x, p, cfg)
+    out = decode_attention(q[:, 0], cache["k"].transpose(1, 2),
+                           cache["v"].transpose(1, 2), cache["k"].shape[1] - 1)
     return _out_proj(out[:, None], p["wo"]), cache

@@ -22,7 +22,6 @@ class Model:
 
 
 def build(cfg: ArchConfig) -> Model:
-    transformer.check_supported(cfg)
     return Model(
         cfg=cfg,
         init_params=functools.partial(transformer.init_params, cfg),

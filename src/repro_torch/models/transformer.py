@@ -1,18 +1,22 @@
 """The composable model (port of ``repro/models/transformer.py``): a
-periodic stack of (mixer, ffn) blocks, the mixer self-attention, Mamba,
-mLSTM or sLSTM, the ffn an MLP, an MoE or none.
+periodic stack of (mixer, ffn) blocks, the mixer self-attention,
+cross-attention, Mamba, mLSTM or sLSTM, the ffn an MLP, an MoE or none.
+Inputs are tokens, tokens with image embeddings (the VLM, whose
+``img_proj`` maps them into the model width for cross-attention), or frame
+embeddings (the encoder-only audio model, whose prefill returns logits at
+every position and no cache).
 
 Per-slot parameters are stacked on a leading ``n_periods`` axis as in the
 reference; its ``lax.scan`` over periods becomes a Python loop.
-Cross-attention and non-token inputs raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
 
 The cache is a dict ``{"slot{i}": {...}}`` stacked on a leading period
-axis: attention's ``k``/``v`` (n_periods, B, T, Hkv, Dh), Mamba's ``ssm``
-and ``conv``, mLSTM's ``C``, ``n``, ``m`` and sLSTM's ``c``, ``n``, ``h``,
-``m``.  ``decode_step`` updates it in place and returns it: attention
-writes its new K/V into the stacked cache, and each recurrent slot's new
-state is copied back over its period's slice.
+axis: attention's ``k``/``v`` (n_periods, B, T, Hkv, Dh), cross-attention's
+static image ``k``/``v`` (n_periods, B, img_tokens, Hkv, Dh), Mamba's
+``ssm`` and ``conv``, mLSTM's ``C``, ``n``, ``m`` and sLSTM's ``c``, ``n``,
+``h``, ``m``.  ``decode_step`` updates it in place and returns it:
+attention writes its new K/V into the stacked cache, cross-attention
+leaves its own as it is, and each recurrent slot's new state is copied
+back over its period's slice.
 """
 from __future__ import annotations
 
@@ -33,33 +37,14 @@ from repro_torch.params import resolve_device
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
 
-_ROADMAP = {
-    "cross_attn": "item 9 (vision and audio models)",
-    "inputs": "item 9 (vision and audio models)",
-}
-
-
-def _not_ported(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md, modules to port, "
-        f"{_ROADMAP[key]}")
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless every block's mixer is
-    self-attention, Mamba, mLSTM or sLSTM and the inputs are tokens."""
-    for mixer, _ in cfg.block_pattern:
-        if mixer not in _MIXERS:
-            raise _not_ported(f"{cfg.name}: mixer {mixer!r}", mixer)
-    if cfg.img_tokens or cfg.embedding_inputs:
-        raise _not_ported(f"{cfg.name}: image/embedding inputs", "inputs")
-
-
 # mixer -> (init, prefill, decode); every init takes (cfg, gen, n, dtype,
-# device), every prefill (x, p, cfg) and every decode (x, p, cfg, cache),
-# attention's also ``pos``; prefill and decode return (out, new_cache)
+# device), every prefill (x, p, cfg), cross-attention's also ``img_h``, and
+# every decode (x, p, cfg, cache), attention's also ``pos``; prefill and
+# decode return (out, new_cache)
 _MIXERS = {
     "attn": (attn.init_attn, attn.attn_prefill, attn.attn_decode),
+    "cross_attn": (attn.init_attn, attn.cross_attn_prefill,
+                   attn.cross_attn_decode),
     "mamba": (ssm.init_mamba, ssm.mamba_prefill, ssm.mamba_decode),
     "mlstm": (ssm.init_mlstm, ssm.mlstm_prefill, ssm.mlstm_decode),
     "slstm": (ssm.init_slstm, ssm.slstm_prefill, ssm.slstm_decode),
@@ -72,12 +57,14 @@ _MIXERS = {
 def init_params(cfg: ArchConfig, *, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16, device="cuda") -> Params:
     """Random weights with the reference's shapes and standard deviations,
-    drawn from ``generator`` (which must live on ``device``)."""
-    check_supported(cfg)
+    drawn from ``generator`` (which must live on ``device``).  Frame
+    inputs have no embedding table and always an ``lm_head``; image inputs
+    add ``img_proj`` (d_vision, d_model)."""
     dev = resolve_device(device)
     n = cfg.n_periods
-    params: Params = {"embed": init_embed(cfg, generator, dtype, dev),
-                      "slots": {}}
+    params: Params = {"slots": {}}
+    if not cfg.embedding_inputs:
+        params["embed"] = init_embed(cfg, generator, dtype, dev)
     for i, (mixer, ffn) in enumerate(cfg.block_pattern):
         slot = {"norm1": init_norm(cfg, n, dtype, dev),
                 "mixer": _MIXERS[mixer][0](cfg, generator, n, dtype, dev)}
@@ -87,10 +74,14 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
             slot["ffn"] = init_ffn(cfg, generator, n, dtype, dev)
         params["slots"][f"slot{i}"] = slot
     params["final_norm"] = init_norm(cfg, None, dtype, dev)
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings or cfg.embedding_inputs:
         params["lm_head"] = {"w": normal_leaf(
             generator, None, (cfg.d_model, cfg.vocab_size),
             cfg.d_model ** -0.5, dtype, dev)}
+    if cfg.img_tokens:
+        params["img_proj"] = {"w": normal_leaf(
+            generator, None, (cfg.d_vision, cfg.d_model),
+            cfg.d_vision ** -0.5, dtype, dev)}
     return params
 
 
@@ -120,20 +111,21 @@ def period_params(slots: Params, i: int) -> Params:
 # ==========================================================================
 def _apply_block(slot_idx: int, h: torch.Tensor, slot_p: Params,
                  cfg: ArchConfig, mode: str, cache: Optional[Cache],
-                 pos: Optional[int]
+                 pos: Optional[int], img_h: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Pre-norm residual block (the mixer, then the MLP or MoE if any).
-    Returns (h, new_cache, aux), aux the MoE's load-balance loss (f32 zero
-    for other blocks)."""
+    ``img_h`` (B, img_tokens, D) feeds cross-attention's prefill.  Returns
+    (h, new_cache, aux), aux the MoE's load-balance loss (f32 zero for
+    other blocks)."""
     mixer, ffn = cfg.block_pattern[slot_idx]
     y = apply_norm(h, slot_p["norm1"], cfg)
     _, prefill_fn, decode_fn = _MIXERS[mixer]
     if mode != "decode":
-        y, new_cache = prefill_fn(y, slot_p["mixer"], cfg)
-    elif mixer == "attn":
-        y, new_cache = decode_fn(y, slot_p["mixer"], cfg, cache, pos)
+        extra = (img_h,) if mixer == "cross_attn" else ()
+        y, new_cache = prefill_fn(y, slot_p["mixer"], cfg, *extra)
     else:
-        y, new_cache = decode_fn(y, slot_p["mixer"], cfg, cache)
+        extra = (pos,) if mixer == "attn" else ()
+        y, new_cache = decode_fn(y, slot_p["mixer"], cfg, cache, *extra)
     h = h + y
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if ffn != "none":
@@ -147,8 +139,20 @@ def _apply_block(slot_idx: int, h: torch.Tensor, slot_p: Params,
 
 
 def _embed_inputs(params: Params, cfg: ArchConfig,
-                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return embed_tokens(batch["tokens"], params["embed"])
+                  batch: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(h, img_h): token embeddings, or ``frames`` cast to the weights'
+    dtype; and for image inputs ``img_embeds @ img_proj`` computed in f32
+    and rounded once, as JAX promotes f32 inputs against bf16 weights."""
+    if cfg.embedding_inputs:
+        h = batch["frames"].to(params["lm_head"]["w"].dtype)
+    else:
+        h = embed_tokens(batch["tokens"], params["embed"])
+    img_h = None
+    if cfg.img_tokens:
+        img_h = (batch["img_embeds"].float()
+                 @ params["img_proj"]["w"].float()).to(h.dtype)
+    return h, img_h
 
 
 # ==========================================================================
@@ -156,20 +160,22 @@ def _embed_inputs(params: Params, cfg: ArchConfig,
 # ==========================================================================
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
             ) -> Tuple[torch.Tensor, Cache]:
-    """Full-sequence forward producing last-position logits + cache."""
-    h = _embed_inputs(params, cfg, batch)
+    """Full-sequence forward producing last-position logits + cache; for
+    frame inputs (encoder-only) logits at every position and no cache."""
+    h, img_h = _embed_inputs(params, cfg, batch)
     per_period = []
     for p_idx in range(cfg.n_periods):
         slots = period_params(params["slots"], p_idx)
         new_cache = {}
         for i in range(cfg.period):
             h, nc, _ = _apply_block(i, h, slots[f"slot{i}"], cfg,
-                                    "prefill", None, None)
+                                    "prefill", None, None, img_h)
             new_cache[f"slot{i}"] = nc
         per_period.append(new_cache)
-    cache = stack_periods(per_period)
     h = apply_norm(h, params["final_norm"], cfg)
-    return unembed(h[:, -1:], params, cfg), cache
+    if cfg.embedding_inputs:      # encoder-only: every position, no cache
+        return h @ params["lm_head"]["w"], {}
+    return unembed(h[:, -1:], params, cfg), stack_periods(per_period)
 
 
 def stack_periods(per_period: list) -> Cache:
@@ -183,8 +189,9 @@ def decode_step(params: Params, cache: Cache, tokens: torch.Tensor, pos: int,
                 cfg: ArchConfig) -> Tuple[torch.Tensor, Cache]:
     """One-token decode.  tokens: (B,1) integer; pos: number of tokens
     already in the KV cache (host int).  Updates ``cache`` in place:
-    attention writes into it, and a recurrent slot's new state (a new
-    tensor) is copied over its period's slice."""
+    attention writes into it, cross-attention's image K/V stay as they
+    are, and a recurrent slot's new state (a new tensor) is copied over
+    its period's slice."""
     h = embed_tokens(tokens, params["embed"])
     for p_idx in range(cfg.n_periods):
         slots = period_params(params["slots"], p_idx)
@@ -192,8 +199,8 @@ def decode_step(params: Params, cache: Cache, tokens: torch.Tensor, pos: int,
             name = f"slot{i}"
             period_cache = {k: c[p_idx] for k, c in cache[name].items()}
             h, new_state, _ = _apply_block(i, h, slots[name], cfg, "decode",
-                                           period_cache, pos)
-            if mixer != "attn":
+                                           period_cache, pos, None)
+            if mixer not in ("attn", "cross_attn"):
                 for k, v in new_state.items():
                     period_cache[k].copy_(v)
     h = apply_norm(h, params["final_norm"], cfg)
@@ -217,6 +224,10 @@ def _slot_cache_shape(mixer: str, cfg: ArchConfig, batch: int, max_seq: int,
     if mixer == "attn":
         kv = LeafSpec((batch, max_seq, cfg.n_kv_heads, cfg.d_head), dtype)
         return {"k": kv, "v": kv}
+    if mixer == "cross_attn":
+        kv = LeafSpec((batch, cfg.img_tokens, cfg.n_kv_heads, cfg.d_head),
+                      dtype)
+        return {"k": kv, "v": kv}
     if mixer == "mamba":
         di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
         return {"ssm": LeafSpec((batch, di, ds), f32),
@@ -234,7 +245,6 @@ def _slot_cache_shape(mixer: str, cfg: ArchConfig, batch: int, max_seq: int,
 def cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16) -> Cache:
     """Cache shapes, stacked over periods."""
-    check_supported(cfg)
     return {f"slot{i}": {name: LeafSpec((cfg.n_periods, *s.shape), s.dtype)
                          for name, s in _slot_cache_shape(
                              mixer, cfg, batch, max_seq, dtype).items()}

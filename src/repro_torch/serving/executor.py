@@ -3,12 +3,15 @@ model with preemption points at super-block (period) boundaries during
 prefill and token boundaries during decode.
 
 The execution context held at a boundary — hidden activations, the
-cache (attention KV buffers, Mamba and xLSTM states), generated tokens —
-is an explicit :class:`ExecState`.  Suspend and resume are exact: a
+projected image states of a VLM request, the cache (attention KV buffers,
+cross-attention's static image KV, Mamba and xLSTM states), generated
+tokens — is an explicit :class:`ExecState`.  Suspend and resume are exact: a
 preempted-then-resumed run produces bit-identical outputs to an
 uninterrupted one.  Each step runs under ``torch.inference_mode()``; the
-decode cache is updated in place.  Only attention slots grow with the
-context; a recurrent state keeps its size.
+decode cache is updated in place.  Only self-attention slots grow with
+the context; the image KV and a recurrent state keep their sizes.  An
+encoder-only model ends its prefill in phase ``done`` with logits at every
+position and no token.
 """
 from __future__ import annotations
 
@@ -73,16 +76,19 @@ class PreemptibleExecutor:
         return self.cfg.n_periods
 
     def _device(self) -> torch.device:
-        return self.params["embed"]["table"].device
+        """The weights' device, read from the block stack every arch has."""
+        return transformer.tree_leaves(self.params["slots"])[0].device
 
     @torch.inference_mode()
     def start(self, batch: Dict[str, Any]) -> ExecState:
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
-                                 device=self._device())
-        h = transformer._embed_inputs(self.params, self.cfg,
-                                      {"tokens": tokens})
-        return ExecState(phase="prefill", period_idx=0, h=h, cache_slices=[],
-                         tokens_out=[], pos=int(h.shape[1]))
+        """``batch``: ``tokens`` or ``frames``, and ``img_embeds`` for a
+        VLM, as array-likes (the engine hands over numpy arrays)."""
+        dev = self._device()
+        inputs = {k: torch.as_tensor(np.asarray(batch[k]), device=dev)
+                  for k in ("tokens", "frames", "img_embeds") if k in batch}
+        h, img_h = transformer._embed_inputs(self.params, self.cfg, inputs)
+        return ExecState(phase="prefill", period_idx=0, h=h, img_h=img_h,
+                         cache_slices=[], tokens_out=[], pos=int(h.shape[1]))
 
     @torch.inference_mode()
     def step_prefill(self, st: ExecState) -> ExecState:
@@ -93,20 +99,28 @@ class PreemptibleExecutor:
         h, new_cache = st.h, {}
         for i in range(cfg.period):
             h, nc, _ = transformer._apply_block(i, h, slots[f"slot{i}"],
-                                                cfg, "prefill", None, None)
+                                                cfg, "prefill", None, None,
+                                                st.img_h)
             new_cache[f"slot{i}"] = nc
         st.h = h
         st.cache_slices.append(new_cache)
         st.period_idx += 1
         if st.period_idx == self.n_periods:
             hn = apply_norm(st.h, self.params["final_norm"], cfg)
-            st.last_logits = unembed(hn[:, -1:], self.params, cfg)
-            # stack the per-period slices into the decode cache and
-            # greedy-sample the first token
-            st.cache = transformer.stack_periods(st.cache_slices)
-            st.cache_slices = None
-            st.tokens_out.append(_greedy(st.last_logits))
-            st.phase = "decode"
+            if cfg.embedding_inputs:
+                st.last_logits = hn @ self.params["lm_head"]["w"]
+            else:
+                st.last_logits = unembed(hn[:, -1:], self.params, cfg)
+            if cfg.encoder_only:
+                # no decode: the slices stay, and count in cache_bytes()
+                st.phase = "done"
+            else:
+                # stack the per-period slices into the decode cache and
+                # greedy-sample the first token
+                st.cache = transformer.stack_periods(st.cache_slices)
+                st.cache_slices = None
+                st.tokens_out.append(_greedy(st.last_logits))
+                st.phase = "decode"
         return st
 
     def _attn_slots(self) -> List[str]:
@@ -114,8 +128,8 @@ class PreemptibleExecutor:
                 enumerate(self.cfg.block_pattern) if mixer == "attn"]
 
     def _grow_cache(self, st: ExecState, extra: int) -> None:
-        """Extend the attention KV buffers to hold ``extra`` more tokens;
-        recurrent states are left as they are."""
+        """Extend the self-attention KV buffers to hold ``extra`` more
+        tokens; the image KV and recurrent states are left as they are."""
         def pad(a: torch.Tensor) -> torch.Tensor:
             shape = list(a.shape)
             shape[2] = extra             # (periods, B, T, H, Dh)

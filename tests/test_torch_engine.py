@@ -1,8 +1,10 @@
 """The port's ServingEngine against ``repro.serving.ServingEngine`` on
 bridged weights (tiny olmo-1b with qwen3-8b, olmo-1b with qwen3-moe as
-the reference's own serving tests mix them, and xlstm-350m with the hybrid
-jamba-1.5-large; f32), with ``hw=TPU_V5E`` passed to both: every request
-result and the summary agree."""
+the reference's own serving tests mix them, xlstm-350m with the hybrid
+jamba-1.5-large, and the VLM llama-3.2-vision-11b with the encoder-only
+hubert-xlarge on requests that carry image embeddings and frames; f32),
+with ``hw=TPU_V5E`` passed to both: every request result and the summary
+agree."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,8 @@ ARCHS = ("olmo-1b", "qwen3-8b")
 MOE_ARCHS = ("olmo-1b", "qwen3-moe-30b-a3b")
 # the two archs with recurrent mixers (jamba also has attention and MoE)
 SSM_ARCHS = ("xlstm-350m", "jamba-1.5-large-398b")
+# image and frame inputs
+VLM_AUDIO_ARCHS = ("llama-3.2-vision-11b", "hubert-xlarge")
 
 
 def _bridge(archs):
@@ -51,7 +55,15 @@ def ssm_models():
     return _bridge(SSM_ARCHS)
 
 
+@pytest.fixture(scope="module")
+def vlm_audio_models():
+    return _bridge(VLM_AUDIO_ARCHS)
+
+
 def _requests(mod, seed, n=8, window=1e-4, archs=ARCHS):
+    """``n`` requests alternating over ``archs``; a VLM request carries
+    image embeddings and an audio one frames, drawn after its other
+    fields."""
     rng = np.random.default_rng(seed)
     reqs = []
     for i in range(n):
@@ -62,6 +74,13 @@ def _requests(mod, seed, n=8, window=1e-4, archs=ARCHS):
             max_new_tokens=6, priority=int(rng.choice([1, 3, 9])),
             arrival=float(rng.uniform(0, window)),
             true_decode_len=int(rng.integers(2, 7))))
+        cfg = get_model(archs[i % 2], tiny=True).cfg
+        if cfg.img_tokens:
+            reqs[-1].img_embeds = rng.standard_normal(
+                (1, cfg.img_tokens, cfg.d_vision)).astype(np.float32)
+        if cfg.embedding_inputs:
+            reqs[-1].frames = rng.standard_normal(
+                (1, plen, cfg.d_model)).astype(np.float32)
     return reqs
 
 
@@ -73,6 +92,8 @@ MOE_CASES = [("prema", "dynamic", 1e-5), ("prema", "checkpoint", 1e-6),
              ("token", "kill", 1e-4)]
 SSM_CASES = [("prema", "dynamic", 1e-5), ("prema", "checkpoint", 1e-6),
              ("token", "kill", 1e-4)]
+VLM_AUDIO_CASES = [("prema", "dynamic", 1e-4), ("prema", "checkpoint", 1e-6),
+                   ("token", "kill", 1e-4)]
 
 
 @pytest.mark.parametrize("policy,mechanism,window", CASES)
@@ -88,6 +109,17 @@ def test_engine_matches_jax_with_moe(moe_models, policy, mechanism, window):
 @pytest.mark.parametrize("policy,mechanism,window", SSM_CASES)
 def test_engine_matches_jax_with_ssm(ssm_models, policy, mechanism, window):
     _check_engines(ssm_models, policy, mechanism, window, SSM_ARCHS)
+
+
+@pytest.mark.parametrize("policy,mechanism,window", VLM_AUDIO_CASES)
+def test_engine_matches_jax_with_vlm_audio(vlm_audio_models, policy,
+                                           mechanism, window):
+    """The audio requests end after their prefill with no token; the VLM
+    requests decode."""
+    results = _check_engines(vlm_audio_models, policy, mechanism, window,
+                             VLM_AUDIO_ARCHS)
+    for r in results:
+        assert (r.tokens.shape[1] == 0) == (r.arch == "hubert-xlarge"), r.rid
 
 
 def _check_engines(models, policy, mechanism, window, archs):
@@ -111,6 +143,7 @@ def _check_engines(models, policy, mechanism, window, archs):
         assert (rt.n_preemptions, rt.n_kills) == (rj.n_preemptions, rj.n_kills)
         assert rt.ckpt_overhead == rj.ckpt_overhead
     assert engines["torch"].summary() == engines["jax"].summary()
+    return results["torch"]
 
 
 def test_contention_never_changes_tokens(models):

@@ -1,9 +1,11 @@
 """The port's model against ``repro.models`` on bridged weights (tiny
-configs, f32; the dense archs, the two MoE archs, xlstm-350m and the
-hybrid jamba-1.5-large): prefill and decode logits and every cache leaf at
-2e-4, prefill beyond 2048 keys (the reference's chunked attention) at
-2e-4, prefill against incremental decode inside the port at 2e-3, cache
-sizes exactly."""
+configs, f32; the dense archs, the two MoE archs, xlstm-350m, the hybrid
+jamba-1.5-large, the VLM llama-3.2-vision-11b with its image inputs and
+cross-attention, and the encoder-only hubert-xlarge on frame inputs):
+prefill and decode logits and every cache leaf at 2e-4, prefill beyond
+2048 keys (the reference's chunked attention) at 2e-4, prefill against
+incremental decode inside the port at 2e-3, cache sizes exactly, and the
+parameter tree of every arch."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ import torch
 
 from repro.models import get_model as jax_get_model
 from repro.models import transformer as jt
+from repro_torch import configs
 from repro_torch.models import get_model
 from repro_torch.models import transformer as tt
 from repro_torch.params import params_from_numpy
@@ -20,6 +23,7 @@ torch.set_num_threads(2)
 DENSE = ["olmo-1b", "qwen3-8b", "qwen1.5-4b", "deepseek-coder-33b"]
 MOE = ["qwen3-moe-30b-a3b", "phi3.5-moe-42b-a6.6b"]
 SSM = ["xlstm-350m", "jamba-1.5-large-398b"]
+VLM, AUDIO = "llama-3.2-vision-11b", "hubert-xlarge"
 TOL = 2e-4
 
 
@@ -49,6 +53,29 @@ def _tokens(cfg, s, seed=1):
     return np.random.default_rng(seed).integers(1, cfg.vocab_size, (1, s)).astype(np.int32)
 
 
+def _batch(cfg, s, seed=1):
+    """The model's inputs for ``s`` positions, as numpy: the tokens of
+    ``_tokens``, or frames for the audio model; a VLM's image embeddings
+    are drawn after its tokens."""
+    rng = np.random.default_rng(seed)
+    if cfg.embedding_inputs:
+        return {"frames": rng.standard_normal((1, s, cfg.d_model)).astype(
+            np.float32)}
+    batch = {"tokens": rng.integers(1, cfg.vocab_size, (1, s)).astype(np.int32)}
+    if cfg.img_tokens:
+        batch["img_embeds"] = rng.standard_normal(
+            (1, cfg.img_tokens, cfg.d_vision)).astype(np.float32)
+    return batch
+
+
+def _jnp(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
 def _assert_caches_close(got, ref, tol, prefix=None):
     """Every leaf of two stacked caches; ``prefix`` cuts the reference's
     attention leaves to their first ``prefix`` positions."""
@@ -64,20 +91,32 @@ def _assert_caches_close(got, ref, tol, prefix=None):
                                        err_msg=f"{slot}/{name}")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM + [VLM, AUDIO])
 def test_prefill_and_decode_match_jax(arch):
+    """The VLM also compares its image K/V, and decodes against the image
+    K/V of its prefill; the encoder-only model has logits at every
+    position, an empty cache and no decode."""
     jmodel, tree = bridged_params(arch)
     cfg = jmodel.cfg
+    tcfg = get_model(arch, tiny=True).cfg
     jp = jax.tree.map(jnp.asarray, tree)
     tp = params_from_numpy(tree, "cpu")
-    toks = _tokens(cfg, 8)
-    lj, _ = jax.jit(jmodel.prefill)(jp, {"tokens": jnp.asarray(toks)})
-    lt, _ = tt.prefill(tp, {"tokens": torch.from_numpy(toks)}, get_model(arch, tiny=True).cfg)
+    batch = _batch(cfg, 8)
+    lj, pcj = jax.jit(jmodel.prefill)(jp, _jnp(batch))
+    lt, pct = tt.prefill(tp, _torch(batch), tcfg)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=TOL, atol=TOL)
+    _assert_caches_close(pct, jax.tree.map(np.asarray, pcj), TOL)
+    if cfg.encoder_only:
+        assert lt.shape == (1, 8, cfg.vocab_size) and pct == {}
+        return
 
-    tcfg = get_model(arch, tiny=True).cfg
+    toks = batch["tokens"]
     cj = jmodel.init_cache(1, 12, dtype=jnp.float32)
     ct = tt.init_cache(tcfg, 1, 12, dtype=torch.float32, device="cpu")
+    for i, (mixer, _) in enumerate(cfg.block_pattern):
+        if mixer == "cross_attn":
+            cj[f"slot{i}"] = pcj[f"slot{i}"]
+            ct[f"slot{i}"] = {k: v.clone() for k, v in pct[f"slot{i}"].items()}
     step = jax.jit(jmodel.decode_step)
     for t in range(toks.shape[1]):
         lj, cj = step(jp, cj, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
@@ -103,7 +142,7 @@ def test_prefill_matches_incremental_decode(arch):
     _assert_caches_close(cache, cache_pre, 2e-3, prefix=8)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM + [VLM, AUDIO])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cache_bytes_match_jax(arch, dtype):
     jcfg = jax_get_model(arch).cfg
@@ -113,33 +152,56 @@ def test_cache_bytes_match_jax(arch, dtype):
             jt.cache_bytes(jcfg, batch, seq, getattr(jnp, dtype))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "olmo-1b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "olmo-1b", "qwen3-moe-30b-a3b",
+                                  AUDIO])
 def test_long_prefill_matches_jax(arch):
     """S = 3072: above 2048 keys and a multiple of 1024, the reference
-    attends through its ``lax.scan`` online softmax; the port through the
-    same flash path as below.  The MoE's capacity there is 960."""
+    attends through its ``lax.scan`` online softmax (hubert's without a
+    causal mask); the port through the same flash path as below.  The
+    MoE's capacity there is 960."""
     jmodel, tree = bridged_params(arch)
-    toks = _tokens(jmodel.cfg, 3072)
+    batch = _batch(jmodel.cfg, 3072)
     lj, _ = jax.jit(jmodel.prefill)(jax.tree.map(jnp.asarray, tree),
-                                    {"tokens": jnp.asarray(toks)})
-    lt, ct = tt.prefill(params_from_numpy(tree, "cpu"),
-                        {"tokens": torch.from_numpy(toks)},
+                                    _jnp(batch))
+    lt, ct = tt.prefill(params_from_numpy(tree, "cpu"), _torch(batch),
                         get_model(arch, tiny=True).cfg)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=TOL, atol=TOL)
-    assert int(lt.argmax()) == int(np.asarray(lj).argmax())
-    assert ct["slot0"]["k"].shape[2] == 3072
+    assert int(lt[0, -1].argmax()) == int(np.asarray(lj)[0, -1].argmax())
+    if jmodel.cfg.encoder_only:
+        assert lt.shape[1] == 3072 and ct == {}
+    else:
+        assert ct["slot0"]["k"].shape[2] == 3072
 
 
-def test_init_params_shapes_match_jax():
-    for arch in ["qwen1.5-4b"] + SSM:
-        jmodel = jax_get_model(arch, tiny=True)
-        ref = jax.tree.map(lambda a: (a.shape, str(a.dtype)), jax.eval_shape(
-            jmodel.init_params, jax.random.PRNGKey(0)))
-        got = tt.tree_map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[1]),
-                          get_model(arch, tiny=True).init_params(
-                              generator=torch.Generator().manual_seed(0),
-                              dtype=torch.float32, device="cpu"))
-        assert got == ref, arch
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_init_params_shapes_match_jax(arch):
+    """The same leaves with the same shapes and dtypes: no ``embed`` for
+    frame inputs, which have an ``lm_head``; ``img_proj`` for image
+    inputs."""
+    jmodel = jax_get_model(arch, tiny=True)
+    ref = jax.tree.map(lambda a: (a.shape, str(a.dtype)), jax.eval_shape(
+        jmodel.init_params, jax.random.PRNGKey(0)))
+    got = tt.tree_map(lambda t: (tuple(t.shape), str(t.dtype).split(".")[1]),
+                      get_model(arch, tiny=True).init_params(
+                          generator=torch.Generator().manual_seed(0),
+                          dtype=torch.float32, device="cpu"))
+    assert got == ref
+
+
+@pytest.mark.parametrize("tiny", [True, False], ids=["tiny", "full"])
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_every_arch_builds(arch, tiny):
+    """Every mixer and input kind is ported: the model builds and its cache
+    spec has each block's leaves, the image K/V at img_tokens positions."""
+    model = get_model(arch, tiny=tiny)
+    spec = model.cache_spec(1, 16)
+    assert sorted(spec) == [f"slot{i}" for i in range(model.cfg.period)]
+    for i, (mixer, _) in enumerate(model.cfg.block_pattern):
+        if mixer in ("attn", "cross_attn"):
+            t = model.cfg.img_tokens if mixer == "cross_attn" else 16
+            assert spec[f"slot{i}"]["k"].shape == (
+                model.cfg.n_periods, 1, t, model.cfg.n_kv_heads,
+                model.cfg.d_head)
 
 
 def test_bridge_keeps_bf16_bits():
@@ -148,12 +210,6 @@ def test_bridge_keeps_bf16_bits():
     t = params_from_numpy({"w": a}, "cpu")["w"]
     assert t.dtype == torch.bfloat16
     assert np.array_equal(t.view(torch.int16).numpy(), a.view(np.int16))
-
-
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "hubert-xlarge"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(arch, tiny=True)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():

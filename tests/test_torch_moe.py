@@ -222,7 +222,7 @@ def test_block_aux_matches_jax(arch):
     ht, _, aux_t = tt._apply_block(0, torch.from_numpy(h),
                                    tt.period_params(tp["slots"], 0)["slot0"],
                                    get_model(arch, tiny=True).cfg, "prefill",
-                                   None, None)
+                                   None, None, None)
     np.testing.assert_allclose(ht.numpy(), np.asarray(hj), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=TOL, atol=TOL)
     assert float(aux_t) > 0
