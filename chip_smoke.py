@@ -71,7 +71,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
     on full-width hubert-xlarge in bf16 (the first of 2048), each done
     after its prefill with no token, its logits at every position equal
     bit for bit to its isolated run's, flash once a prefill step on the
-    CUDA-core kernel at D 80, and no decode.
+    CUDA-core kernel at D 80, and no decode;
+12. the training path (``train``): the flash wrapper refuses an input
+    that requires grad; tiny olmo-1b, qwen3-8b, qwen3-moe-30b-a3b,
+    xlstm-350m, jamba-1.5-large-398b, llama-3.2-vision-11b and
+    hubert-xlarge each take one train step in f32 (grad_accum 2, remat
+    ``full``) on the card and on the CPU from the same weights and batch,
+    held to TINY_TOL; then full-width olmo-1b (1.177 B parameters) trains
+    in f32 through the launcher's parts (``repro_torch.launch.train``):
+    seq 4096, global batch 8 in 4 microbatches (the chunked CE), remat
+    ``full``, 4 steps with an async checkpoint after step 2, then a
+    restart from it whose steps 3-4 must leave every parameter and moment
+    equal bit for bit; the reference's lr at every step, no flash or
+    decode launch, and one more step profiled by kernel family.
 
 Each serving phase also holds its profiled prefill's device time against
 CUDA events around the same prefill.  Then a ``{"kernels": [...]}`` line
@@ -512,10 +524,11 @@ def router_margins(margins: list):
 
     def recording(x2d, p, cfg):
         if x2d.device.type == "cpu":
-            probs = torch.softmax(x2d.float() @ p["router"], dim=-1)
-            top = torch.sort(probs, dim=-1, descending=True).values
-            margins.append(float((top[:, cfg.top_k - 1]
-                                  - top[:, cfg.top_k]).min()))
+            with torch.no_grad():
+                probs = torch.softmax(x2d.float() @ p["router"], dim=-1)
+                top = torch.sort(probs, dim=-1, descending=True).values
+                margins.append(float((top[:, cfg.top_k - 1]
+                                      - top[:, cfg.top_k]).min()))
         return route(x2d, p, cfg)
     moe.route = recording
     try:
@@ -1069,10 +1082,13 @@ def _family(name: str) -> str:
     return "other"
 
 
-def _device_breakdown(prof, wall_s: float) -> dict:
-    """Device time by kernel family, launches and the six longest kernels,
-    summed from the profiler's raw device events (kernels, copies, sets):
-    the Python records behind ``key_averages()`` take minutes to build for
+def _device_breakdown(prof, wall_s: float, family=_family,
+                      families=("flash_attention", "decode_attention",
+                                "gemm", "other")) -> dict:
+    """Device time by kernel family (``family`` maps a kernel's name to
+    one of ``families``), launches and the six longest kernels, summed
+    from the profiler's raw device events (kernels, copies, sets): the
+    Python records behind ``key_averages()`` take minutes to build for
     the million launches of a recurrent prefill."""
     by_name = {}
     for evt in prof.profiler.kineto_results.events():
@@ -1080,10 +1096,9 @@ def _device_breakdown(prof, wall_s: float) -> dict:
             total = by_name.setdefault(evt.name(), [0.0, 0])
             total[0] += evt.duration_ns() / 1e6
             total[1] += 1
-    fams = {"flash_attention": 0.0, "decode_attention": 0.0, "gemm": 0.0,
-            "other": 0.0}
+    fams = dict.fromkeys(families, 0.0)
     for name, (ms, _) in by_name.items():
-        fams[_family(name)] += ms
+        fams[family(name)] += ms
     device_ms = sum(fams.values())
     top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     return dict(wall_ms=wall_s * 1e3, device_ms=device_ms,
@@ -1168,6 +1183,275 @@ def phase_gemm_path(card: str) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 12: training
+# --------------------------------------------------------------------------
+TRAIN_TINY = ("olmo-1b", "qwen3-8b", "qwen3-moe-30b-a3b", "xlstm-350m",
+              "jamba-1.5-large-398b", "llama-3.2-vision-11b", "hubert-xlarge")
+# the full-width run: olmo-1b in f32 at the train_4k shape's sequence,
+# global batch 8 in 4 microbatches of 2 (2 x 4096 x 50304 logits > 2**28:
+# the chunked CE), 4 steps, an async checkpoint after step 2
+TRAIN_ARGS = ["--arch", "olmo-1b", "--steps", "4", "--seq-len", "4096",
+              "--global-batch", "8", "--grad-accum", "4", "--remat", "full",
+              "--ckpt-every", "2", "--device", "cuda", "--dtype", "float32",
+              "--seed", "0"]
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+
+
+def tiny_train_card_vs_cpu(name: str) -> dict:
+    """One ``make_train_step`` of tiny ``name`` in f32 (grad_accum 2,
+    remat ``full``) on the card and on the CPU from the same weights and
+    batch: the loss and grad norm within TINY_TOL x max(1, |CPU|), every
+    new parameter leaf within TINY_TOL; for an MoE also the router's least
+    top-k margin on the CPU."""
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.params import params_from_numpy
+    from repro_torch.training import (DataConfig, TokenDataset, TrainConfig,
+                                      init_opt_state, init_train_state,
+                                      make_train_step)
+    cfg = get_model(name, tiny=True).cfg
+    tcfg = TrainConfig(remat="full", grad_accum=2)
+    cpu, opt_cpu = init_train_state(cfg, tcfg, generator=torch.Generator()
+                                    .manual_seed(1), device="cpu")
+    gpu = params_from_numpy(tree_map(lambda x: x.numpy(), cpu), "cuda")
+    opt_gpu = init_opt_state(gpu, tcfg.opt)
+    batch = TokenDataset(DataConfig(seq_len=16, global_batch=4, seed=2),
+                         cfg).batch_at(0)
+    step = make_train_step(cfg, tcfg)
+    margins = []
+    with router_margins(margins):
+        pc, _, mc = step(cpu, opt_cpu, batch)
+        pg, _, mg = step(gpu, opt_gpu, batch)
+    torch.cuda.synchronize()
+    row = {k: dict(cpu=float(mc[k]), card=float(mg[k]),
+                   bound=TINY_TOL * max(1.0, abs(float(mc[k]))))
+           for k in ("loss", "grad_norm")}
+    row["params_max_abs_err"] = max(max_err(a.cpu(), b) for a, b in
+                                    zip(tree_leaves(pg), tree_leaves(pc)))
+    row["lr"] = float(mg["lr"])
+    if margins:
+        row["router_topk_margin"] = min(margins)
+    ok = (row["params_max_abs_err"] <= TINY_TOL
+          and all(abs(row[k]["cpu"] - row[k]["card"]) <= row[k]["bound"]
+                  for k in ("loss", "grad_norm")))
+    if not ok:
+        raise SystemExit(f"{name}: a training step on the card differs from "
+                         f"the CPU's: {row}")
+    return row
+
+
+def _train_family(name: str) -> str:
+    """Kernel families of a training step's gradient part."""
+    low = name.lower()
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+        return "gemm"
+    if any(k in low for k in ("elementwise", "reduce", "softmax",
+                              "vectorized", "unrolled")):
+        return "softmax_elementwise"
+    return "other"
+
+
+def reference_lr(step: int, opt) -> float:
+    """The reference's ``lr_at`` for one step, in numpy f32 op for op."""
+    f32 = np.float32
+    s = f32(step)
+    warm = f32(opt.peak_lr) * s / f32(max(opt.warmup_steps, 1))
+    prog = np.clip((s - f32(opt.warmup_steps))
+                   / f32(max(opt.total_steps - opt.warmup_steps, 1)),
+                   f32(0), f32(1))
+    cos = f32(opt.min_lr_frac) + f32((1 - opt.min_lr_frac) * 0.5) * (
+        f32(1) + np.cos(f32(np.pi) * prog))
+    return float(warm if s < opt.warmup_steps else f32(opt.peak_lr) * cos)
+
+
+def train_flops(cfg, tokens: int, seq: int) -> dict:
+    """Forward FLOPs of one step's work from the shapes: every 2-D product
+    (2 per weight and token; the tied table once, as the unembed) and
+    attention's two batched products over every chunk of keys (the
+    reference's chunked path computes masked chunks too): model FLOPs
+    are 3 forwards (forward and backward), the executed ones add the
+    recompute of remat ``full`` (the stack and the CE chunks: one more
+    forward)."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    per_layer = d * (hq + 2 * hkv) * dh + hq * dh * d + 3 * d * f
+    gemm = 2 * tokens * (cfg.n_layers * per_layer + d * v)
+    attn = cfg.n_layers * 4 * tokens * seq * hq * dh
+    fwd = gemm + attn
+    return dict(forward=fwd, model=3 * fwd, executed=4 * fwd)
+
+
+def profile_train_step(run, params, opt, batch) -> dict:
+    """One step's device time (``torch.profiler``, CUDA activity) in its
+    two parts, as ``make_train_step`` composes them: the gradient
+    (microbatches' forward, recompute and backward, accumulation) by
+    kernel family, then the update (AdamW), all of it family
+    ``optimizer``; the idle share over both walls, and each part's peak
+    of allocated memory."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training.train_step import make_grad_fn, update
+    grad_fn = make_grad_fn(run.cfg, run.tcfg)
+    parts = {}
+    torch.cuda.synchronize()
+    peaks = {}
+    for part in ("gradient", "update"):
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if part == "gradient":
+                _, _, grads = grad_fn(params, batch)
+            else:
+                update(params, grads, opt, run.tcfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peaks[part] = torch.cuda.max_memory_allocated() / 1e9
+        parts[part] = _device_breakdown(
+            prof, wall, _train_family, ("gemm", "softmax_elementwise",
+                                        "other"))
+    fam = dict(parts["gradient"]["family_ms"])
+    fam["optimizer"] = parts["update"]["device_ms"]
+    wall = sum(p["wall_ms"] for p in parts.values())
+    device = sum(p["device_ms"] for p in parts.values())
+    return dict(wall_ms=wall, device_ms=device, idle_share=1 - device / wall,
+                family_ms=fam, peak_mem_gb=peaks,
+                launches=sum(p["launches"] for p in parts.values()),
+                top=parts["gradient"]["top"], update_top=parts["update"]["top"])
+
+
+def train_full_width(card: str) -> dict:
+    """Full-width olmo-1b (16 layers, d_model 2048, 16 heads of 128, vocab
+    50,304; 1.177 B parameters) trained in f32 through the launcher's parts
+    in order (``repro_torch.launch.train``): 4 steps from a seeded init
+    with an async checkpoint after step 2 (and one after step 4, the
+    cadence's); then the step-2 checkpoint reloaded onto the card and
+    steps 3-4 run again, every parameter and moment leaf required equal
+    bit for bit; a finite loss and grad norm and the reference's lr at
+    every step; no flash or decode launch.  Then one more step profiled."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.training import checkpoint
+
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    args = launcher.parse_args(TRAIN_ARGS + ["--ckpt-dir", str(TRAIN_CKPT)])
+    run = launcher.setup(args)
+    cfg, b, s = run.cfg, args.global_batch, args.seq_len
+    micro = b // args.grad_accum
+    t0 = time.perf_counter()
+    start, state = launcher.init_or_resume(run, args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(state["params"]))
+    state_gb = 4 * n_params / 1e9     # one f32 copy of the parameters
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    log = []
+    t0 = time.perf_counter()
+    launcher.train(run, args, state, start, log)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    saved = sorted(os.listdir(TRAIN_CKPT))
+
+    t0 = time.perf_counter()
+    step, again = checkpoint.load(str(TRAIN_CKPT), step=2,
+                                  device=run.device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    args.ckpt_dir = None
+    log2 = []
+    launcher.train(run, args, again, step, log2)
+    n_leaves = len(tree_leaves(state))
+    differ = sum(not torch.equal(a, c) for a, c in zip(tree_leaves(state),
+                                                       tree_leaves(again)))
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = profile_train_step(run, state["params"], state["opt"],
+                              run.data.batch_at(args.steps))
+    launches = _launches()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+
+    lr_ref = [reference_lr(e["step"], run.tcfg.opt) for e in log]
+    steady = [e["wall_s"] for e in log[1:]]
+    step_s = sum(steady) / len(steady)
+    flops = train_flops(cfg, b * s, s)
+    row = dict(
+        card=card, model=cfg.name, dtype="float32", n_params=n_params,
+        seq_len=s, global_batch=b, grad_accum=args.grad_accum,
+        microbatch=micro, remat=args.remat,
+        chunked_ce=micro * s * cfg.vocab_size > 2 ** 28,
+        param_init_s=init_s, steps=log, restart_steps=log2,
+        checkpoints_written=saved, checkpoint_load_s=load_s,
+        train_wall_s=train_s,
+        outside_steps_s=train_s - sum(e["wall_s"] for e in log),
+        step_wall_s=step_s, step_wall_note="mean of steps 2-4",
+        tokens_per_s=b * s / step_s,
+        peak_mem_gb=peak_gb,
+        reckoned_gb=dict(params=state_gb, grads=state_gb,
+                         adamw_moments=2 * state_gb,
+                         grad_accumulator=state_gb, total=5 * state_gb),
+        profiled_step=prof,
+        flops_per_step=flops,
+        model_flops_share_of_f32_peak=flops["model"] / step_s
+        / PEAK_OPS[torch.float32],
+        executed_flops_share_of_f32_peak=flops["executed"] / step_s
+        / PEAK_OPS[torch.float32],
+        lr=[e["lr"] for e in log], lr_reference=lr_ref,
+        leaves_compared=n_leaves, leaves_differ=differ,
+        launches=launches)
+    emit("train", **row)
+    bad = []
+    if differ:
+        bad.append(f"{differ} of {n_leaves} leaves differ after restart")
+    if [e["step"] for e in log] != [1, 2, 3, 4] or [e["step"] for e in
+                                                   log2] != [3, 4]:
+        bad.append("wrong steps run")
+    if not all(np.isfinite(e[k]) for e in log + log2
+               for k in ("loss", "grad_norm")):
+        bad.append("a non-finite loss or grad norm")
+    if any(abs(a - r) > 1e-6 * r for a, r in zip(row["lr"], lr_ref)):
+        bad.append("lr differs from the reference's schedule")
+    if any(n for n in launches.values()):
+        bad.append(f"kernel launches while training: {launches}")
+    if not row["chunked_ce"] or saved[:1] != ["step_0000000002"]:
+        bad.append(f"not the chunked CE, or no step-2 checkpoint: {saved}")
+    if bad:
+        raise SystemExit(f"full-width training: {bad}")
+    return launches
+
+
+def phase_train(card: str):
+    """The training path: the flash wrapper refuses an input that requires
+    grad; tiny archs train a step on the card as on the CPU; full-width
+    olmo-1b trains in f32 and restarts bit-exact from its async
+    checkpoint.  No flash or decode kernel launches in either."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    q = torch.zeros((1, 2, 8, 16), device="cuda", requires_grad=True)
+    k = torch.zeros((1, 2, 8, 16), device="cuda")
+    try:
+        flash_attention(q, k, k)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise SystemExit("flash_attention took an input that requires grad")
+    _reset_launches()
+    tiny = {name: tiny_train_card_vs_cpu(name) for name in TRAIN_TINY}
+    got = _launches()
+    emit("train_tiny_card_vs_cpu", dtype="float32", grad_accum=2,
+         remat="full", tol=TINY_TOL, flash_refuses_grad=refused,
+         launches=got, **tiny)
+    if any(got.values()):
+        raise SystemExit(f"kernel launches while training tiny models: {got}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train_full_width(card)
+
+
 # the kernels whose compiled code phase 1 reports: name -> a pattern of
 # its mangled name (the decode kernel at bf16, D 128, groups up to 4; the
 # CUDA-core GEMM on its 16-byte path, and flash at f32, D 128)
@@ -1212,7 +1496,7 @@ def compiled_kernels(lib_path: Path):
 
 
 PHASES = ("kernels", "gemm", "tiny", "serve", "serve_f32", "path",
-          "serve_moe", "serve_dense", "serve_ssm", "serve_vlm_audio")
+          "serve_moe", "serve_dense", "serve_ssm", "serve_vlm_audio", "train")
 # the kernels line: name, launch counter, source, TPU kernel, headline row
 KERNELS = [
     ("flash_attention_wgmma_bf16", "flash_attention/wgmma",
@@ -1302,7 +1586,8 @@ def main(argv=None) -> int:
              ("path", phase_gemm_path), ("serve_moe", phase_serve_moe),
              ("serve_dense", phase_serve_dense),
              ("serve_ssm", phase_serve_ssm),
-             ("serve_vlm_audio", phase_serve_vlm_audio)]
+             ("serve_vlm_audio", phase_serve_vlm_audio),
+             ("train", phase_train)]
     for phase, run in paths:
         if phase in phases:
             t0 = time.perf_counter()

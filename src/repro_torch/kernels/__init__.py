@@ -59,3 +59,14 @@ def check_attention_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"KV heads {k.shape[1]}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and one of ``tensors``
+    requires grad: the kernels have no backward, and an output written
+    through raw pointers would carry no ``grad_fn``, so the gradients of
+    everything upstream would be dropped without an error.  Training
+    reaches attention through ``models.attention.attn_forward``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward; it takes no input that "
+                           "requires grad while grad mode is on")

@@ -11,7 +11,7 @@ from typing import Tuple, Union
 import torch
 
 from repro_torch.kernels import (DTYPE_CODES, check_attention_inputs,
-                                 cuda_lib, tma_operand)
+                                 cuda_lib, refuse_grad, tma_operand)
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 
 HEAD_DIMS = (8, 16, 32, 64, 128)   # the head widths the kernel is built for
@@ -58,9 +58,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B,Hq,D) one token per sequence; k,v: (B,Hkv,T,D), any strides;
     attend over cache[0..pos] → (B,Hq,D).  ``pos``: a host int in [0, T),
     or a 0-dim int32 tensor on q's device, read without a host sync and
-    clamped to [0, T)."""
+    clamped to [0, T).  An input that requires grad while grad mode is on
+    raises ``RuntimeError`` (:func:`repro_torch.kernels.refuse_grad`)."""
     global launches
     check_attention_inputs(q, k, v, q_ndim=3, head_dims=HEAD_DIMS)
+    refuse_grad("decode_attention", q, k, v)
     b, hq, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     pos = _check_pos(pos, q, t)

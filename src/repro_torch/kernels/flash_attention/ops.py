@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (DTYPE_CODES, check_attention_inputs,
-                                 cuda_lib, tma_operand)
+                                 cuda_lib, refuse_grad, tma_operand)
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
 # the head widths the kernels are built for: every d_head of the configs
@@ -34,9 +34,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``cp.async`` copies): an input whose strides do not allow that
     (innermost stride not 1, other strides not multiples of 16 bytes, base
     not 16-byte aligned) is copied first
-    (:func:`repro_torch.kernels.tma_operand`)."""
+    (:func:`repro_torch.kernels.tma_operand`).  An input that requires
+    grad while grad mode is on raises ``RuntimeError``
+    (:func:`repro_torch.kernels.refuse_grad`): the kernels have no
+    backward."""
     global launches
     check_attention_inputs(q, k, v, q_ndim=4, head_dims=HEAD_DIMS)
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
     b, hq, s, d = q.shape

@@ -1,15 +1,20 @@
 """GQA self-attention and cross-attention (port of
-``repro/models/attention.py``, prefill and decode).
+``repro/models/attention.py``: train, prefill and decode).
 
-Attention itself runs through the port's kernels: prefill (self and
-cross) through ``flash_attention`` and decode through ``decode_attention``,
-whose plain versions take their place on the CPU.  They replace the
-reference's ``_dense_attend``/``_chunked_attend``/``_gqa_attend``.  One
-deliberate difference in bf16: the reference model casts the
+Serving runs attention through the port's kernels: prefill (self and
+cross) through ``flash_attention`` and decode through
+``decode_attention``, whose plain versions take their place on the CPU.
+One deliberate difference in bf16: the reference model casts the
 probabilities to ``q.dtype`` before PV; the decode kernel and the
-CUDA-core flash kernel (the TPU ones too) keep them in f32, and the port
+CUDA-core flash kernel (the TPU ones too) keep them in f32, and serving
 follows the kernels, in cross-attention as in self-attention.  In f32 the
 two are the same.
+
+Training runs ``attn_forward`` and ``cross_attn_forward``: the reference's
+``_dense_attend``, ``_chunked_attend`` and ``_gqa_attend`` as plain
+differentiable torch, the probabilities cast to ``q.dtype`` before PV as
+the reference casts them.  The kernels have no backward and refuse inputs
+that require grad, so training never reaches them.
 """
 from __future__ import annotations
 
@@ -24,6 +29,12 @@ from repro_torch.models.layers import (apply_rope, normal_leaf, rms_norm_head,
                                        stacked)
 
 Params = dict
+NEG_INF = -1e30
+# KV-chunk threshold: above this many keys (and a multiple of KV_CHUNK),
+# training attention streams KV blocks with an online softmax so the
+# (S x T) score tensor is never materialised whole
+CHUNK_THRESHOLD = 2048
+KV_CHUNK = 1024
 
 
 def init_attn(cfg: ArchConfig, gen: torch.Generator, n: Optional[int], dtype,
@@ -140,3 +151,93 @@ def cross_attn_decode(x: torch.Tensor, p: Params, cfg: ArchConfig,
     out = decode_attention(q[:, 0], cache["k"].transpose(1, 2),
                            cache["v"].transpose(1, 2), cache["k"].shape[1] - 1)
     return _out_proj(out[:, None], p["wo"]), cache
+
+
+# --------------------------------------------------------------------------
+# Training: the reference's attention math as differentiable torch
+# --------------------------------------------------------------------------
+def _dense_attend(q, k, v, dh: int, mask: Optional[torch.Tensor]):
+    """q: (B,S,H,Dh); k,v: (B,T,H,Dh); mask broadcastable to (B,H,S,T)."""
+    scores = torch.einsum("bshk,bthk->bhst", q, k).float() * dh ** -0.5
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthk->bshk", probs, v)
+
+
+def _chunked_attend(q, k, v, dh: int, causal: bool, kv_chunk: int):
+    """Online-softmax streaming over KV chunks of ``kv_chunk`` keys, in
+    f32, every chunk computed in full (causal masking, no skipping), as
+    the reference's ``lax.scan`` does."""
+    b, s, h, _ = q.shape
+    t = k.shape[1]
+    qf = q.float() * dh ** -0.5
+    rows = torch.arange(s, device=q.device)[:, None]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, s), NEG_INF, **f32)
+    l = torch.zeros((b, h, s), **f32)
+    acc = torch.zeros((b, h, s, dh), **f32)
+    for ci in range(t // kv_chunk):
+        k_i = k[:, ci * kv_chunk:(ci + 1) * kv_chunk].float()
+        v_i = v[:, ci * kv_chunk:(ci + 1) * kv_chunk].float()
+        s_ij = torch.einsum("bshk,bthk->bhst", qf, k_i)
+        if causal:
+            cols = ci * kv_chunk + torch.arange(kv_chunk,
+                                                device=q.device)[None, :]
+            s_ij = torch.where((cols <= rows)[None, None], s_ij, NEG_INF)
+        # amax, like jnp.max, splits the gradient evenly between ties
+        m_new = torch.maximum(m, torch.amax(s_ij, dim=-1))
+        p = torch.exp(s_ij - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + torch.sum(p, dim=-1)
+        acc = alpha[..., None] * acc + torch.einsum("bhst,bthk->bhsk", p, v_i)
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return out.transpose(1, 2)                                 # (B,S,H,Dh)
+
+
+def _gqa_attend(q, k, v, mask: Optional[torch.Tensor],
+                causal_for_chunks: Optional[bool] = None):
+    """q: (B,S,Hq,Dh); k,v: (B,T,Hkv,Dh).  KV heads are broadcast up to the
+    query heads (head h reads KV head h // g, ``jnp.repeat``).  With
+    ``causal_for_chunks`` not None, T > ``CHUNK_THRESHOLD`` and T a
+    multiple of ``KV_CHUNK``, the chunked online softmax runs."""
+    b, s, hq, dh = q.shape
+    hkv, t = k.shape[2], k.shape[1]
+    g = hq // hkv
+    if g > 1:
+        k = k[:, :, :, None].expand(b, t, hkv, g, dh).reshape(b, t, hq, dh)
+        v = v[:, :, :, None].expand(b, t, hkv, g, dh).reshape(b, t, hq, dh)
+    if (causal_for_chunks is not None and t > CHUNK_THRESHOLD
+            and t % KV_CHUNK == 0):
+        return _chunked_attend(q, k, v, dh, causal_for_chunks, KV_CHUNK)
+    return _dense_attend(q, k, v, dh, mask)
+
+
+def _causal_mask(s: int, t: int, device) -> torch.Tensor:
+    """(1,1,S,T) mask; query i may see key j iff j <= i."""
+    qi = torch.arange(s, device=device)[:, None]
+    kj = torch.arange(t, device=device)[None, :]
+    return (kj <= qi)[None, None]
+
+
+def attn_forward(x: torch.Tensor, p: Params, cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence self-attention for training (and encoders): dense, or
+    the chunked online softmax beyond ``CHUNK_THRESHOLD`` keys."""
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    mask = _causal_mask(s, s, x.device) if cfg.causal else None
+    out = _gqa_attend(q, k, v, mask, causal_for_chunks=cfg.causal)
+    return _out_proj(out, p["wo"])
+
+
+def cross_attn_forward(x: torch.Tensor, p: Params, cfg: ArchConfig,
+                       img_h: torch.Tensor) -> torch.Tensor:
+    """x: (B,S,D) text; img_h: (B,Timg,D) projected image states.  No RoPE,
+    no mask; dense for every config's image tokens (at most 2048), and
+    chunked beyond, as the reference."""
+    q = _project_q(x, p, cfg)
+    k, v = _project_kv(img_h, p, cfg)
+    out = _gqa_attend(q, k, v, None, causal_for_chunks=False)
+    return _out_proj(out, p["wo"])

@@ -9,10 +9,11 @@ weights through ``repro_torch.params.params_from_numpy`` instead.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
 
@@ -137,3 +138,48 @@ def unembed(h: torch.Tensor, params: Params, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return h @ params["embed"]["table"].T            # (V, D)
     return h @ params["lm_head"]["w"]
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's negative log-likelihood of its label, in f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return logz - gold
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy, computed in f32."""
+    return torch.mean(_token_nll(logits, labels))
+
+
+# At training scale the full logits tensor (B*S, V) can reach hundreds of
+# GB; above this element count the unembed+CE is streamed over sequence
+# chunks so only (B, chunk, V) logits are ever live.
+CE_CHUNK_THRESHOLD = 2 ** 28
+CE_SEQ_CHUNK = 256
+
+
+def _chunk_ce_sum(h: torch.Tensor, labels: torch.Tensor,
+                  unembed_fn: Callable) -> torch.Tensor:
+    return torch.sum(_token_nll(unembed_fn(h), labels))
+
+
+def chunked_unembed_cross_entropy(h: torch.Tensor, labels: torch.Tensor,
+                                  unembed_fn: Callable,
+                                  seq_chunk: int = CE_SEQ_CHUNK
+                                  ) -> torch.Tensor:
+    """Mean CE of ``unembed_fn(h_chunk)`` without materialising the full
+    logits.  h: (B,S,D); labels: (B,S).  Each chunk runs under a
+    non-reentrant ``checkpoint`` (the reference's ``jax.checkpoint`` per
+    scan step), so its logits are recomputed in the backward pass and
+    never saved; the per-chunk sums add up in f32 in chunk order."""
+    b, s, _ = h.shape
+    if s % seq_chunk != 0:
+        seq_chunk = s  # fall back (small inputs)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, seq_chunk):
+        tot = tot + checkpoint(_chunk_ce_sum, h[:, i:i + seq_chunk],
+                               labels[:, i:i + seq_chunk], unembed_fn,
+                               use_reentrant=False, preserve_rng_state=False)
+    return tot / (b * s)

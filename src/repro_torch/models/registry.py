@@ -15,6 +15,7 @@ class Model:
     """Config-bound model entry points."""
     cfg: ArchConfig
     init_params: Callable
+    train_loss: Callable
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
@@ -25,6 +26,7 @@ def build(cfg: ArchConfig) -> Model:
     return Model(
         cfg=cfg,
         init_params=functools.partial(transformer.init_params, cfg),
+        train_loss=functools.partial(transformer.train_loss, cfg=cfg),
         prefill=functools.partial(transformer.prefill, cfg=cfg),
         decode_step=functools.partial(transformer.decode_step, cfg=cfg),
         init_cache=functools.partial(transformer.init_cache, cfg),

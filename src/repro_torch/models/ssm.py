@@ -45,6 +45,11 @@ Params = dict
 # (ssm state, conv tail), exactly the decode state.
 SCAN_CHUNK = 128
 M_INIT = -1e30
+# the floor of the xLSTM normalisers, a CPU scalar that ``torch.maximum``
+# takes beside tensors on any device: like ``jnp.maximum`` (and unlike
+# ``torch.clamp``) it splits the gradient evenly on a tie, and sLSTM's
+# normaliser is exactly 1 after its first step
+_ONE = torch.tensor(1.0)
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -234,7 +239,7 @@ def _mlstm_step(state, xs):
     n = f_g * n + i_g * kf
     num = (qf[..., None, :] @ c)[..., 0, :]                  # (B,H,dv)
     den = (n[..., None, :] @ qf[..., :, None])[..., 0, 0]    # (B,H)
-    den = torch.clamp(torch.abs(den), min=1.0)
+    den = torch.maximum(torch.abs(den), _ONE)
     return (c, n, m_new), num / den[..., None]
 
 
@@ -309,7 +314,7 @@ def _slstm_step(r_zifo: torch.Tensor, state, x_pre: torch.Tensor):
     f_g = torch.exp(logf_m - m_new)
     c = f_g * c + i_g * torch.tanh(z_pre)
     n = f_g * n + i_g
-    h_new = torch.sigmoid(o_pre) * c / torch.clamp(n, min=1.0)
+    h_new = torch.sigmoid(o_pre) * c / torch.maximum(n, _ONE)
     return (c, n, h_new, m_new), h_new
 
 

@@ -8,6 +8,9 @@ every position and no cache).
 
 Per-slot parameters are stacked on a leading ``n_periods`` axis as in the
 reference; its ``lax.scan`` over periods becomes a Python loop.
+``train_loss`` runs the stack in mode ``"train"``: attention through
+``attn_forward``/``cross_attn_forward`` (plain torch under autograd, never
+the kernels), each period under the ``remat`` policy.
 
 The cache is a dict ``{"slot{i}": {...}}`` stacked on a leading period
 axis: attention's ``k``/``v`` (n_periods, B, T, Hkv, Dh), cross-attention's
@@ -24,12 +27,17 @@ import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                   create_selective_checkpoint_contexts)
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
+from repro_torch.models.layers import (CE_CHUNK_THRESHOLD, apply_mlp,
+                                       apply_norm,
+                                       chunked_unembed_cross_entropy,
+                                       cross_entropy, embed_tokens,
                                        init_embed, init_mlp, init_norm,
                                        normal_leaf, unembed)
 from repro_torch.params import resolve_device
@@ -37,18 +45,24 @@ from repro_torch.params import resolve_device
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
 
-# mixer -> (init, prefill, decode); every init takes (cfg, gen, n, dtype,
-# device), every prefill (x, p, cfg), cross-attention's also ``img_h``, and
-# every decode (x, p, cfg, cache), attention's also ``pos``; prefill and
-# decode return (out, new_cache)
+# mixer -> (init, prefill, decode, forward); every init takes (cfg, gen,
+# n, dtype, device), every prefill and forward (x, p, cfg),
+# cross-attention's also ``img_h``, and every decode (x, p, cfg, cache),
+# attention's also ``pos``; prefill and decode return (out, new_cache),
+# forward (training) the output alone
 _MIXERS = {
-    "attn": (attn.init_attn, attn.attn_prefill, attn.attn_decode),
+    "attn": (attn.init_attn, attn.attn_prefill, attn.attn_decode,
+             attn.attn_forward),
     "cross_attn": (attn.init_attn, attn.cross_attn_prefill,
-                   attn.cross_attn_decode),
-    "mamba": (ssm.init_mamba, ssm.mamba_prefill, ssm.mamba_decode),
-    "mlstm": (ssm.init_mlstm, ssm.mlstm_prefill, ssm.mlstm_decode),
-    "slstm": (ssm.init_slstm, ssm.slstm_prefill, ssm.slstm_decode),
+                   attn.cross_attn_decode, attn.cross_attn_forward),
+    "mamba": (ssm.init_mamba, ssm.mamba_prefill, ssm.mamba_decode,
+              ssm.mamba_forward),
+    "mlstm": (ssm.init_mlstm, ssm.mlstm_prefill, ssm.mlstm_decode,
+              ssm.mlstm_forward),
+    "slstm": (ssm.init_slstm, ssm.slstm_prefill, ssm.slstm_decode,
+              ssm.slstm_forward),
 }
+REMATS = ("none", "dots", "full")
 
 
 # ==========================================================================
@@ -93,12 +107,30 @@ def tree_map(fn: Callable, tree):
 
 
 def tree_leaves(tree) -> list:
-    """Leaves of nested dicts and lists, in order."""
+    """Leaves of nested dicts and lists in ``jax.tree.leaves``' order:
+    dict keys sorted, lists in order.  The optimizer's global norm and the
+    checkpoint's leaf list depend on it."""
     if isinstance(tree, dict):
-        return [x for v in tree.values() for x in tree_leaves(v)]
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, list):
         return [x for v in tree for x in tree_leaves(v)]
     return [] if tree is None else [tree]
+
+
+def tree_unflatten(tree: dict, leaves: list) -> dict:
+    """``tree``'s nesting of dicts, its leaves replaced by ``leaves`` taken
+    in :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if not isinstance(node, dict):
+            return next(it)
+        built = {k: build(node[k]) for k in sorted(node)}
+        return {k: built[k] for k in node}
+    out = build(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
 
 
 def period_params(slots: Params, i: int) -> Params:
@@ -113,19 +145,23 @@ def _apply_block(slot_idx: int, h: torch.Tensor, slot_p: Params,
                  cfg: ArchConfig, mode: str, cache: Optional[Cache],
                  pos: Optional[int], img_h: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
-    """Pre-norm residual block (the mixer, then the MLP or MoE if any).
-    ``img_h`` (B, img_tokens, D) feeds cross-attention's prefill.  Returns
+    """Pre-norm residual block (the mixer, then the MLP or MoE if any), in
+    mode ``"train"``, ``"prefill"`` or ``"decode"``.  ``img_h`` (B,
+    img_tokens, D) feeds cross-attention.  Returns
     (h, new_cache, aux), aux the MoE's load-balance loss (f32 zero for
     other blocks)."""
     mixer, ffn = cfg.block_pattern[slot_idx]
     y = apply_norm(h, slot_p["norm1"], cfg)
-    _, prefill_fn, decode_fn = _MIXERS[mixer]
-    if mode != "decode":
-        extra = (img_h,) if mixer == "cross_attn" else ()
-        y, new_cache = prefill_fn(y, slot_p["mixer"], cfg, *extra)
-    else:
+    _, prefill_fn, decode_fn, forward_fn = _MIXERS[mixer]
+    if mode == "decode":
         extra = (pos,) if mixer == "attn" else ()
         y, new_cache = decode_fn(y, slot_p["mixer"], cfg, cache, *extra)
+    else:
+        extra = (img_h,) if mixer == "cross_attn" else ()
+        if mode == "train":
+            y, new_cache = forward_fn(y, slot_p["mixer"], cfg, *extra), None
+        else:
+            y, new_cache = prefill_fn(y, slot_p["mixer"], cfg, *extra)
     h = h + y
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if ffn != "none":
@@ -155,9 +191,82 @@ def _embed_inputs(params: Params, cfg: ArchConfig,
     return h, img_h
 
 
+def _save_unbatched_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat ``"dots"``: keep the outputs of
+    2-D products (``aten.mm``, what the projections and MLPs lower to) and
+    recompute the rest, batched products included: the counterpart of
+    ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _train_period(h: torch.Tensor, slots: Params, cfg: ArchConfig,
+                  img_h: Optional[torch.Tensor]):
+    """One period of blocks in mode ``"train"``: (h, aux), aux the last
+    block's, as the reference's scan carries it."""
+    for i in range(cfg.period):
+        h, _, aux = _apply_block(i, h, slots[f"slot{i}"], cfg, "train",
+                                 None, None, img_h)
+    return h, aux
+
+
+def _train_stack(params: Params, h: torch.Tensor, cfg: ArchConfig,
+                 img_h: Optional[torch.Tensor], remat: str):
+    """The periods in turn, each under ``remat``: ``"none"`` keeps every
+    activation, ``"full"`` only the period's inputs (non-reentrant
+    ``checkpoint``), ``"dots"`` also its 2-D products.  Returns (h, aux),
+    aux summed over periods in f32.  The reference's scan adds only each
+    period's last block's aux (``transformer.py:190-199``): for jamba,
+    one MoE block in four; the port adds the same."""
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+    ckpt = dict(use_reentrant=False, preserve_rng_state=False)
+    if remat == "dots":
+        ckpt["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_unbatched_products)
+    aux_acc = torch.zeros((), dtype=torch.float32, device=h.device)
+    # one unbind of each stacked leaf: its backward stacks the periods'
+    # gradients once, where a view per period (``period_params``) would add
+    # a zero-filled gradient of the whole stacked leaf for every period
+    periods = tree_map(lambda x: x.unbind(0), params["slots"])
+    for p_idx in range(cfg.n_periods):
+        slots = tree_map(lambda u: u[p_idx], periods)
+        if remat == "none":
+            h, aux = _train_period(h, slots, cfg, img_h)
+        else:
+            h, aux = checkpoint(_train_period, h, slots, cfg, img_h, **ckpt)
+        aux_acc = aux_acc + aux
+    return h, aux_acc
+
+
 # ==========================================================================
 # Public entry points
 # ==========================================================================
+def train_loss(params: Params, batch: Dict[str, torch.Tensor],
+               cfg: ArchConfig, remat: str = "none",
+               aux_weight: float = 0.01
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy plus ``aux_weight`` times the MoE
+    load-balance loss: (loss, {"ce", "moe_aux"}).  ``batch`` holds
+    ``labels`` (B,S) and ``tokens`` (B,S), or ``frames`` (B,S,D) for the
+    encoder-only model (scored through ``lm_head``), and ``img_embeds``
+    for the VLM.  Above ``CE_CHUNK_THRESHOLD`` logits the unembed and CE
+    run in checkpointed sequence chunks."""
+    h, img_h = _embed_inputs(params, cfg, batch)
+    h, aux = _train_stack(params, h, cfg, img_h, remat)
+    h = apply_norm(h, params["final_norm"], cfg)
+    if cfg.embedding_inputs:
+        unembed_fn = lambda hh: hh @ params["lm_head"]["w"]
+    else:
+        unembed_fn = lambda hh: unembed(hh, params, cfg)
+    b, s, _ = h.shape
+    if b * s * cfg.vocab_size > CE_CHUNK_THRESHOLD:
+        ce = chunked_unembed_cross_entropy(h, batch["labels"], unembed_fn)
+    else:
+        ce = cross_entropy(unembed_fn(h), batch["labels"])
+    return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
+
+
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
             ) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence forward producing last-position logits + cache; for

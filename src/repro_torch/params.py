@@ -3,7 +3,10 @@
 ``params_from_numpy`` maps the JAX pytree of ``transformer.init_params``
 (leaves as numpy arrays) leaf by leaf to tensors, keeping the nested names
 and the leading ``n_periods`` axis of every slot leaf, so both packages can
-run on the same weights.  ``matmul_checkpoint_from_numpy`` does the same
+run on the same weights.  ``opt_state_from_numpy`` carries the
+reference's training state across the same way (AdamW's moments in their
+own dtype, the step, the error-feedback buffers), so both packages can
+take the same optimizer step.  ``matmul_checkpoint_from_numpy`` does the same
 for a preempted GEMM's checkpoint, so a GEMM stopped in one package
 resumes in the other.
 """
@@ -60,6 +63,21 @@ def params_from_numpy(tree: Dict[str, Any], device,
         return _leaf_to_tensor(node, dev, torch.float32
                                if name in F32_LEAVES else dtype)
     return convert(tree)
+
+
+def opt_state_from_numpy(state: Dict[str, Any], device) -> Dict[str, Any]:
+    """The reference's optimizer state (``init_opt_state`` or
+    ``apply_updates``' result, leaves as array-likes) → the port's on
+    ``device``, every leaf in its own dtype: ``m`` and ``v`` in their
+    ``moment_dtype``, ``step`` a 0-dim int32 tensor, ``err`` (the
+    error-feedback buffers, when present) f32."""
+    dev = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return _leaf_to_tensor(node, dev, None)
+    return convert(state)
 
 
 def matmul_checkpoint_from_numpy(acc, k_tile: int, n_ktiles: int,

@@ -21,7 +21,8 @@ COPIES = ([f"configs/{m}.py" for m in (
         "task", "ops", "registry", "events", "preemption", "ready_queue",
         "scheduler", "arbiter", "predictor", "metrics", "faults", "simulator",
         "cluster", "arch_ops", "__init__")]
-    + ["serving/request.py", "serving/kv_cache.py", "serving/__init__.py"]
+    + ["serving/request.py", "serving/kv_cache.py", "serving/__init__.py",
+       "training/data.py"]
     + [f"workloads/{m}.py" for m in (
         "__init__", "admission", "arrivals", "generator", "retry",
         "serving_adapter", "spec", "tenants", "trace_io")])
