@@ -83,7 +83,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
     ``full``, 4 steps with an async checkpoint after step 2, then a
     restart from it whose steps 3-4 must leave every parameter and moment
     equal bit for bit; the reference's lr at every step, no flash or
-    decode launch, and one more step profiled by kernel family.
+    decode launch, and one more step profiled twice by kernel family,
+    with where the device waited (the longest gaps between its events);
+    all of it under the launcher's default ``--mesh host``: an NCCL world of one,
+    a (1, 1) DeviceMesh, parameters and moments as DTensors;
+13. the distributed path (``distributed``): under that NCCL group and
+    mesh, full-width olmo-1b trains 2 steps through the launcher's parts
+    and then, its state freed, 2 meshless steps (``make_train_step``) from
+    the same seed, which must leave every parameter and moment equal (bit
+    for bit expected; the largest difference within TINY_TOL), with each
+    run's step wall, tokens/s and peak memory, and one more step of each
+    profiled as phase ``train`` profiles its step; the mesh run's state
+    resharded onto a fresh (1, 1) mesh and back, losslessly; one
+    full-width qwen3-moe-30b-a3b MoE layer in f32 (capacity factor 16)
+    through ``moe_ffn_sharded`` at T 4096 and ``moe_ffn_psum`` at T 1 and
+    8, outputs and gradients within 1e-5 of the local path's, with CUDA
+    event times beside it; ``elastic.plan``'s bytes per card for
+    full-width qwen3-8b and olmo-1b training state on 2, 4 and 8 H100s
+    (reckoned from shapes); no flash or decode launch.
 
 Each serving phase also holds its profiled prefill's device time against
 CUDA events around the same prefill.  Then a ``{"kernels": [...]}`` line
@@ -99,6 +116,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import re
@@ -1109,6 +1127,36 @@ def _device_breakdown(prof, wall_s: float, family=_family,
                      for k, (ms, n) in top[:6]])
 
 
+def _device_gaps(prof, wall_s: float, top: int = 5) -> dict:
+    """Where the device waited in a profiled region: the union of its
+    events' intervals (``span_ms`` from the first to the last, ``busy_ms``
+    covered), the time between them (``gap_ms``, and in gaps over 1 ms),
+    the wall outside the span (``outside_ms``: host time before the first
+    launch and after the last), and the ``top`` longest gaps with their
+    offset into the span and the events on either side."""
+    ev = sorted((e.start_ns(), e.end_ns(), e.name())
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == torch.autograd.DeviceType.CUDA)
+    if not ev:
+        return {}
+    first, end, prev = ev[0][0], ev[0][1], ev[0][2]
+    gaps = []
+    for s, e, name in ev[1:]:
+        if s > end:
+            gaps.append((s - end, end - first, prev, name))
+        if e > end:
+            end, prev = e, name
+    gap = sum(g[0] for g in gaps)
+    gaps.sort(reverse=True)
+    return dict(span_ms=(end - first) / 1e6, busy_ms=(end - first - gap) / 1e6,
+                gap_ms=gap / 1e6,
+                gaps_over_1ms=sum(g[0] > 1e6 for g in gaps),
+                gap_over_1ms_ms=sum(g[0] for g in gaps if g[0] > 1e6) / 1e6,
+                outside_ms=wall_s * 1e3 - (end - first) / 1e6,
+                longest=[dict(ms=g / 1e6, at_ms=at / 1e6, after=a[:60],
+                              before=b[:60]) for g, at, a, b in gaps[:top]])
+
+
 def _kv_positions(st, cfg) -> dict:
     """Positions the decode cache holds, per kind of attention slot."""
     return {m: st.cache[f"slot{i}"]["k"].shape[2]
@@ -1288,7 +1336,8 @@ def profile_train_step(run, params, opt, batch) -> dict:
     (microbatches' forward, recompute and backward, accumulation) by
     kernel family, then the update (AdamW), all of it family
     ``optimizer``; the idle share over both walls, and each part's peak
-    of allocated memory."""
+    of allocated memory; per part, where the device waited
+    (``_device_gaps``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.training.train_step import make_grad_fn, update
     grad_fn = make_grad_fn(run.cfg, run.tcfg)
@@ -1309,6 +1358,7 @@ def profile_train_step(run, params, opt, batch) -> dict:
         parts[part] = _device_breakdown(
             prof, wall, _train_family, ("gemm", "softmax_elementwise",
                                         "other"))
+        parts[part]["gaps"] = _device_gaps(prof, wall)
     fam = dict(parts["gradient"]["family_ms"])
     fam["optimizer"] = parts["update"]["device_ms"]
     wall = sum(p["wall_ms"] for p in parts.values())
@@ -1316,18 +1366,27 @@ def profile_train_step(run, params, opt, batch) -> dict:
     return dict(wall_ms=wall, device_ms=device, idle_share=1 - device / wall,
                 family_ms=fam, peak_mem_gb=peaks,
                 launches=sum(p["launches"] for p in parts.values()),
-                top=parts["gradient"]["top"], update_top=parts["update"]["top"])
+                top=parts["gradient"]["top"], update_top=parts["update"]["top"],
+                gaps={k: p["gaps"] for k, p in parts.items()})
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the whole leaf on a (1, 1) mesh)."""
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 def train_full_width(card: str) -> dict:
     """Full-width olmo-1b (16 layers, d_model 2048, 16 heads of 128, vocab
     50,304; 1.177 B parameters) trained in f32 through the launcher's parts
-    in order (``repro_torch.launch.train``): 4 steps from a seeded init
-    with an async checkpoint after step 2 (and one after step 4, the
-    cadence's); then the step-2 checkpoint reloaded onto the card and
-    steps 3-4 run again, every parameter and moment leaf required equal
-    bit for bit; a finite loss and grad norm and the reference's lr at
-    every step; no flash or decode launch.  Then one more step profiled."""
+    in order (``repro_torch.launch.train``, under its default ``--mesh
+    host``: an NCCL world of one, a (1, 1) mesh, DTensor state): 4 steps
+    from a seeded init with an async checkpoint after step 2 (and one
+    after step 4, the cadence's); then the step-2 checkpoint restored onto
+    the mesh and steps 3-4 run again, every parameter and moment leaf
+    required equal bit for bit; a finite loss and grad norm and the
+    reference's lr at every step; no flash or decode launch.  Then one
+    more step profiled, twice."""
     from repro_torch.launch import train as launcher
     from repro_torch.models.transformer import tree_leaves
     from repro_torch.training import checkpoint
@@ -1354,21 +1413,22 @@ def train_full_width(card: str) -> dict:
     saved = sorted(os.listdir(TRAIN_CKPT))
 
     t0 = time.perf_counter()
-    step, again = checkpoint.load(str(TRAIN_CKPT), step=2,
-                                  device=run.device)
+    step, again = launcher.restore(run, str(TRAIN_CKPT), step=2)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     args.ckpt_dir = None
     log2 = []
     launcher.train(run, args, again, step, log2)
     n_leaves = len(tree_leaves(state))
-    differ = sum(not torch.equal(a, c) for a, c in zip(tree_leaves(state),
-                                                       tree_leaves(again)))
+    differ = sum(not torch.equal(_local(a), _local(c)) for a, c in
+                 zip(tree_leaves(state), tree_leaves(again)))
     del again
     gc.collect()
     torch.cuda.empty_cache()
     prof = profile_train_step(run, state["params"], state["opt"],
                               run.data.batch_at(args.steps))
+    prof_again = profile_train_step(run, state["params"], state["opt"],
+                                    run.data.batch_at(args.steps))
     launches = _launches()
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
 
@@ -1392,6 +1452,8 @@ def train_full_width(card: str) -> dict:
                          adamw_moments=2 * state_gb,
                          grad_accumulator=state_gb, total=5 * state_gb),
         profiled_step=prof,
+        profiled_again={k: prof_again[k] for k in (
+            "wall_ms", "device_ms", "idle_share", "launches", "gaps")},
         flops_per_step=flops,
         model_flops_share_of_f32_peak=flops["model"] / step_s
         / PEAK_OPS[torch.float32],
@@ -1452,6 +1514,295 @@ def phase_train(card: str):
     return train_full_width(card)
 
 
+# --------------------------------------------------------------------------
+# phase 13: distributed
+# --------------------------------------------------------------------------
+# the mesh run's arguments: phase train's shape, 2 steps, no checkpoint
+DIST_ARGS = ["--arch", "olmo-1b", "--steps", "2", "--seq-len", "4096",
+             "--global-batch", "8", "--grad-accum", "4", "--remat", "full",
+             "--device", "cuda", "--dtype", "float32", "--seed", "0",
+             "--mesh", "host"]
+MOE_TOL = 1e-5          # relative to the local path's largest magnitude
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def distributed_olmo(run, args) -> dict:
+    """Full-width olmo-1b in f32 through the launcher's parts under an NCCL
+    world of one and its (1, 1) mesh (parameters and moments DTensors on
+    the card, every collective of the sharded step called): 2 steps; then
+    the state resharded onto a fresh (1, 1) mesh and back, lossless; then,
+    the first state freed, 2 meshless steps (``make_train_step``) from the
+    same seed, whose every parameter and moment must equal the mesh run's
+    (bit for bit expected; the largest difference within TINY_TOL).  Each
+    run's peak is read before one more step of it is profiled
+    (``profile_train_step``, the update's result dropped)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed.context import use_rules
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.training import init_train_state, make_train_step
+
+    def moments(st):
+        return tree_leaves({"params": st["params"], "m": st["opt"]["m"],
+                            "v": st["opt"]["v"]})
+
+    b, s = args.global_batch, args.seq_len
+    t0 = time.perf_counter()
+    start, state = launcher.init_or_resume(run, args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(state["params"]))
+    on_mesh = all(isinstance(x, DTensor) and x.device_mesh.device_type ==
+                  "cuda" for x in moments(state))
+    n_leaves = len(moments(state))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_log = []
+    launcher.train(run, args, state, start, mesh_log)
+    torch.cuda.synchronize()
+    mesh_peak = torch.cuda.max_memory_allocated() / 1e9
+    with use_rules(run.mesh, run.rules):
+        mesh_prof = profile_train_step(run, state["params"], state["opt"],
+                                       run.data.batch_at(args.steps))
+
+    # elastic: onto a fresh (1, 1) mesh and back
+    t0 = time.perf_counter()
+    fresh = make_mesh((1, 1), ("data", "model"), "cuda")
+    there = elastic.reshard(state, run.cfg, fresh)
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t0
+    there_differ = sum(not torch.equal(_local(a), _local(c)) for a, c in
+                       zip(moments(state), moments(there)))
+    del there
+    back = elastic.reshard(elastic.reshard(state, run.cfg, fresh), run.cfg,
+                           run.mesh)
+    back_differ = sum(not torch.equal(_local(a), _local(c)) for a, c in
+                      zip(moments(state), moments(back)))
+    back_on_mesh = all(x.device_mesh is run.mesh.device_mesh
+                       for x in moments(back))
+    del back
+    host = [_local(x).cpu() for x in moments(state)]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    p, o = init_train_state(run.cfg, run.tcfg, generator=gen,
+                            dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    plain_init_s = time.perf_counter() - t0
+    step = make_train_step(run.cfg, run.tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    plain_log = []
+    for i in range(start, args.steps):
+        t = time.perf_counter()
+        p, o, m = step(p, o, run.data.batch_at(i))
+        plain_log.append({"step": i + 1, **{k: float(m[k]) for k in
+                                            ("loss", "grad_norm", "lr")},
+                          "wall_s": time.perf_counter() - t})
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated() / 1e9
+    plain_prof = profile_train_step(run, p, o, run.data.batch_at(args.steps))
+    plain = moments({"params": p, "opt": o})
+    differ = sum(not torch.equal(h.cuda(), x) for h, x in zip(host, plain))
+    max_diff = max(float((h.cuda() - x).abs().max())
+                   for h, x in zip(host, plain))
+    del p, o, plain, host
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def summary(log, init, peak, prof):
+        return dict(init_s=init, steps=log,
+                    step_wall_s=log[-1]["wall_s"],
+                    tokens_per_s=b * s / log[-1]["wall_s"], peak_mem_gb=peak,
+                    profiled_step={k: prof[k] for k in (
+                        "wall_ms", "device_ms", "idle_share", "family_ms",
+                        "launches", "gaps")})
+    row = dict(model=run.cfg.name, dtype="float32",
+               n_params=n_params, seq_len=s,
+               global_batch=b, grad_accum=args.grad_accum, remat=args.remat,
+               mesh=dict(zip(run.mesh.axis_names,
+                             run.mesh.devices.shape)),
+               step_wall_note="the last step's (the first warms up)",
+               mesh_run=summary(mesh_log, init_s, mesh_peak, mesh_prof),
+               meshless_run=summary(plain_log, plain_init_s, plain_peak,
+                                    plain_prof),
+               params_and_moments_dtensors_on_cuda=on_mesh,
+               leaves_compared=n_leaves,
+               leaves_differ=differ, max_abs_diff=max_diff,
+               step_wall_ratio=mesh_log[-1]["wall_s"]
+               / plain_log[-1]["wall_s"],
+               reshard=dict(seconds=reshard_s, onto_fresh_differ=there_differ,
+                            back_differ=back_differ,
+                            back_on_the_run_mesh=back_on_mesh))
+    return row
+
+
+def distributed_moe_layer(mesh) -> dict:
+    """One full-width qwen3-moe-30b-a3b MoE layer in f32 (128 experts,
+    d_model 2048, d_ff 768, top 8; capacity_factor 16, so no copy drops)
+    under the card's (1, 1) mesh: ``moe_ffn_sharded`` at T 4096 and
+    ``moe_ffn_psum`` at T 1 and 8 against the local ``moe.moe_ffn`` on the
+    same weights and tokens: outputs and the gradients of x, router,
+    w_in, w_gate and w_out within MOE_TOL relative; forward and backward
+    times by CUDA events beside the local path's."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch import configs
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.context import use_rules
+    from repro_torch.models import moe, moe_sharded
+
+    cfg = dataclasses.replace(configs.get_config("qwen3-moe-30b-a3b"),
+                              capacity_factor=16.0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    w = moe.init_moe(cfg, gen, None, torch.float32, "cuda")
+    dm = mesh.device_mesh
+    place = shd.param_placements({"ffn": w}, cfg, mesh)["ffn"]
+    rows = {}
+    for t, which in ((4096, "a2a"), (1, "psum"), (8, "psum")):
+        x = torch.randn((t, cfg.d_model), generator=gen, device="cuda")
+        cot = torch.randn((t, cfg.d_model), generator=gen, device="cuda")
+        fn = (moe_sharded.moe_ffn_sharded if which == "a2a"
+              else moe_sharded.moe_ffn_psum)
+
+        def local_inputs():
+            return (x.clone().requires_grad_(True),
+                    {k: v.clone().requires_grad_(True) for k, v in w.items()})
+
+        def sharded_inputs():
+            return (x.clone().requires_grad_(True),
+                    {k: distribute_tensor(v, dm, place[k]).requires_grad_(True)
+                     for k, v in w.items()})
+
+        def local(xr, wr):
+            out, _ = moe.moe_ffn(xr, wr, cfg)
+            (out * cot).sum().backward()
+            return out.detach()
+
+        def sharded(xs, ws):
+            with use_rules(mesh, {}) as ctx:
+                out, _ = fn(xs, ws, cfg, ctx)
+            (out * cot).sum().backward()
+            return out.detach()
+
+        with use_rules(mesh, {}) as ctx:
+            ok = (moe_sharded.sharded_applicable(cfg, ctx, t)
+                  if which == "a2a" else
+                  moe_sharded.psum_applicable(cfg, ctx, t))
+        xr, wr = local_inputs()
+        ref = local(xr, wr)
+        xs, ws = sharded_inputs()
+        got = sharded(xs, ws)
+        err = {"out": _rel(got, ref), "x": _rel(xs.grad, xr.grad)}
+        for k, v in ws.items():
+            col.sum_replicated(v.grad.to_local(), v.grad.placements, dm)
+            err[k] = _rel(v.grad.full_tensor(), wr[k].grad)
+        del xr, wr, ref, xs, ws, got
+        # forward and backward alone, inputs made before the events
+        times = {}
+        for name, make, run_fn in (("local", local_inputs, local),
+                                   (which, sharded_inputs, sharded)) * 2:
+            args = make()
+            run_fn(*args)
+            args = make()
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            run_fn(*args)
+            e1.record()
+            torch.cuda.synchronize()
+            times.setdefault(f"{name}_fwd_bwd_ms", []).append(
+                e0.elapsed_time(e1))
+            del args
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows[f"{which}_T{t}"] = dict(applicable=ok, rel_err=err, **times)
+    bad = {k: r for k, r in rows.items() if not r["applicable"] or
+           max(r["rel_err"].values()) > MOE_TOL}
+    if bad:
+        raise SystemExit(f"MoE expert-parallel paths differ from the local "
+                         f"path: {bad}")
+    return dict(model=cfg.name, dtype="float32", n_experts=cfg.n_experts,
+                d_model=cfg.d_model, d_ff=cfg.d_ff, top_k=cfg.top_k,
+                capacity_factor=cfg.capacity_factor, tol=MOE_TOL, paths=rows)
+
+
+def distributed_plan() -> list:
+    """``elastic.plan`` for full-width qwen3-8b and olmo-1b training state
+    (f32 parameters and AdamW moments, on meta tensors) from one H100 to
+    the launcher's host mesh on 2, 4 and 8 (80 GB each): reckoned, not
+    measured."""
+    from repro_torch import configs
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed.context import ShapeMesh
+    from repro_torch.training import TrainConfig, init_train_state
+    out = []
+    axes = ("data", "model")
+    for arch in ("qwen3-8b", "olmo-1b"):
+        cfg = configs.get_config(arch)
+        state = dict(zip(("params", "opt"), init_train_state(
+            cfg, TrainConfig(), generator=torch.Generator(), device="meta")))
+        for n in (2, 4, 8):
+            pl = elastic.plan(state, cfg, ShapeMesh((1, 1), axes),
+                              ShapeMesh((1, n), axes))
+            out.append(dict(model=arch, n_from=pl.n_from, n_to=pl.n_to,
+                            gb_per_device_from=pl.bytes_per_device_from / 1e9,
+                            gb_per_device_to=pl.bytes_per_device_to / 1e9,
+                            fits_80gb=pl.fits))
+    return out
+
+
+def phase_distributed(card: str):
+    """The distributed path on one card: NCCL, a (1, 1) DeviceMesh,
+    DTensor state, the sharded step's collectives, the expert-parallel
+    MoE paths, elastic resharding and the memory plan; no flash or
+    decode launch."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as launcher
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = launcher.parse_args(DIST_ARGS)
+    run = launcher.setup(args)
+    backend = dist.get_backend()
+    _reset_launches()
+    olmo = distributed_olmo(run, args)
+    moe_layer = distributed_moe_layer(run.mesh)
+    launches = _launches()
+    plan = distributed_plan()
+    emit("distributed", card=card, backend=backend,
+         world=dist.get_world_size(), olmo_1b=olmo, moe_layer=moe_layer,
+         plan_reckoned=plan, launches=launches)
+    bad = []
+    if backend != "nccl":
+        bad.append(f"backend {backend}, not nccl")
+    if not olmo["params_and_moments_dtensors_on_cuda"]:
+        bad.append("the mesh run's state is not DTensors on the card")
+    if olmo["max_abs_diff"] > TINY_TOL:
+        bad.append(f"mesh and meshless runs differ by {olmo['max_abs_diff']}")
+    if olmo["reshard"]["onto_fresh_differ"] or olmo["reshard"]["back_differ"] \
+            or not olmo["reshard"]["back_on_the_run_mesh"]:
+        bad.append(f"resharding is not lossless: {olmo['reshard']}")
+    runs = (olmo["mesh_run"], olmo["meshless_run"])
+    if not all(np.isfinite(e[k]) for r in runs for e in r["steps"]
+               for k in ("loss", "grad_norm")):
+        bad.append("a non-finite loss or grad norm")
+    if any(n for n in launches.values()):
+        bad.append(f"kernel launches on the distributed path: {launches}")
+    if bad:
+        raise SystemExit(f"distributed: {bad}")
+    return launches
+
+
 # the kernels whose compiled code phase 1 reports: name -> a pattern of
 # its mangled name (the decode kernel at bf16, D 128, groups up to 4; the
 # CUDA-core GEMM on its 16-byte path, and flash at f32, D 128)
@@ -1496,7 +1847,8 @@ def compiled_kernels(lib_path: Path):
 
 
 PHASES = ("kernels", "gemm", "tiny", "serve", "serve_f32", "path",
-          "serve_moe", "serve_dense", "serve_ssm", "serve_vlm_audio", "train")
+          "serve_moe", "serve_dense", "serve_ssm", "serve_vlm_audio", "train",
+          "distributed")
 # the kernels line: name, launch counter, source, TPU kernel, headline row
 KERNELS = [
     ("flash_attention_wgmma_bf16", "flash_attention/wgmma",
@@ -1587,7 +1939,7 @@ def main(argv=None) -> int:
              ("serve_dense", phase_serve_dense),
              ("serve_ssm", phase_serve_ssm),
              ("serve_vlm_audio", phase_serve_vlm_audio),
-             ("train", phase_train)]
+             ("train", phase_train), ("distributed", phase_distributed)]
     for phase, run in paths:
         if phase in phases:
             t0 = time.perf_counter()

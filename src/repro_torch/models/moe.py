@@ -7,8 +7,9 @@ boolean selection and no host sync, so a step stays capturable.  Routing
 is a top-k softmax, renormalised, in f32 whatever the model dtype; the
 auxiliary load-balancing loss is Switch's.
 
-The expert-parallel variants (``moe_sharded.py``) wait for the
-distributed slice.
+Under a sharding context whose expert weights are DTensors, ``apply_moe``
+dispatches to the expert-parallel paths of ``moe_sharded.py`` as the
+reference does; plain tensors are whole values and take the local path.
 """
 from __future__ import annotations
 
@@ -18,7 +19,12 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.context import current
+from repro_torch.distributed.sharding import axis_size
 from repro_torch.models.layers import normal_leaf
 
 Params = dict
@@ -108,7 +114,28 @@ def moe_ffn(x2d: torch.Tensor, p: Params, cfg: ArchConfig
 
 def apply_moe(x: torch.Tensor, p: Params, cfg: ArchConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) → (out, aux) through the local scatter path."""
+    """x: (B, S, D) → (out, aux).  Uses an expert-parallel path when a
+    distributed context is active, the weights are DTensors and the path
+    applies to the batch's global token count (see moe_sharded.py); the
+    local scatter path otherwise, on every token and the weights made
+    whole."""
+    from repro_torch.models import moe_sharded
     b, s, d = x.shape
-    out, aux = moe_ffn(x.reshape(b * s, d), p, cfg)
+    x2 = x.reshape(b * s, d)
+    ctx = current()
+    if ctx is None or not isinstance(p["w_in"], DTensor):
+        out, aux = moe_ffn(x2, p, cfg)
+        return out.reshape(b, s, d), aux
+    n_tokens = b * s * axis_size(ctx.mesh, ctx.row_axes)
+    if moe_sharded.sharded_applicable(cfg, ctx, n_tokens):
+        out, aux = moe_sharded.moe_ffn_sharded(x2, p, cfg, ctx)
+    elif moe_sharded.psum_applicable(cfg, ctx, n_tokens):
+        out, aux = moe_sharded.moe_ffn_psum(x2, p, cfg, ctx)
+    else:   # every token, whole weights: the reference's global arrays
+        dm = ctx.mesh.device_mesh
+        whole = {k: col.make_whole(w.to_local(), w.placements, dm)
+                 for k, w in p.items()}
+        out, aux = moe_ffn(col.all_gather(x2, 0, dm, ctx.row_axes), whole,
+                           cfg)
+        out = col.shard_of(out, 0, dm, ctx.row_axes)
     return out.reshape(b, s, d), aux

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed.context import current, use_ctx
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -211,19 +212,31 @@ def _train_period(h: torch.Tensor, slots: Params, cfg: ArchConfig,
 
 
 def _train_stack(params: Params, h: torch.Tensor, cfg: ArchConfig,
-                 img_h: Optional[torch.Tensor], remat: str):
+                 img_h: Optional[torch.Tensor], remat: str,
+                 gather: Optional[Callable] = None):
     """The periods in turn, each under ``remat``: ``"none"`` keeps every
     activation, ``"full"`` only the period's inputs (non-reentrant
     ``checkpoint``), ``"dots"`` also its 2-D products.  Returns (h, aux),
     aux summed over periods in f32.  The reference's scan adds only each
     period's last block's aux (``transformer.py:190-199``): for jamba,
-    one MoE block in four; the port adds the same."""
+    one MoE block in four; the port adds the same.  ``gather`` (see
+    ``train_loss``) runs inside each period's remat region."""
     if remat not in REMATS:
         raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
     ckpt = dict(use_reentrant=False, preserve_rng_state=False)
     if remat == "dots":
         ckpt["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_unbatched_products)
+    ctx = current()
+
+    def period(h, slots, img_h):
+        # a period's recompute may run on another thread (the device's
+        # backward thread): it enters the sharding context its forward saw
+        with use_ctx(ctx):
+            if gather is not None:
+                slots = gather(slots, "slots")
+            return _train_period(h, slots, cfg, img_h)
+
     aux_acc = torch.zeros((), dtype=torch.float32, device=h.device)
     # one unbind of each stacked leaf: its backward stacks the periods'
     # gradients once, where a view per period (``period_params``) would add
@@ -232,9 +245,9 @@ def _train_stack(params: Params, h: torch.Tensor, cfg: ArchConfig,
     for p_idx in range(cfg.n_periods):
         slots = tree_map(lambda u: u[p_idx], periods)
         if remat == "none":
-            h, aux = _train_period(h, slots, cfg, img_h)
+            h, aux = period(h, slots, img_h)
         else:
-            h, aux = checkpoint(_train_period, h, slots, cfg, img_h, **ckpt)
+            h, aux = checkpoint(period, h, slots, img_h, **ckpt)
         aux_acc = aux_acc + aux
     return h, aux_acc
 
@@ -244,16 +257,24 @@ def _train_stack(params: Params, h: torch.Tensor, cfg: ArchConfig,
 # ==========================================================================
 def train_loss(params: Params, batch: Dict[str, torch.Tensor],
                cfg: ArchConfig, remat: str = "none",
-               aux_weight: float = 0.01
+               aux_weight: float = 0.01, gather: Optional[Callable] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy plus ``aux_weight`` times the MoE
     load-balance loss: (loss, {"ce", "moe_aux"}).  ``batch`` holds
     ``labels`` (B,S) and ``tokens`` (B,S), or ``frames`` (B,S,D) for the
     encoder-only model (scored through ``lm_head``), and ``img_embeds``
     for the VLM.  Above ``CE_CHUNK_THRESHOLD`` logits the unembed and CE
-    run in checkpointed sequence chunks."""
+    run in checkpointed sequence chunks.
+
+    ``gather(tree, path)`` (the sharded train step's) makes a subtree of
+    local parameter shards whole just before its use: the top-level leaves
+    once (path ``""``), each period's slot leaves inside the period's remat
+    region (path ``"slots"``), so one period at a time is whole."""
+    if gather is not None:
+        params = {**gather({k: v for k, v in params.items() if k != "slots"},
+                           ""), "slots": params["slots"]}
     h, img_h = _embed_inputs(params, cfg, batch)
-    h, aux = _train_stack(params, h, cfg, img_h, remat)
+    h, aux = _train_stack(params, h, cfg, img_h, remat, gather)
     h = apply_norm(h, params["final_norm"], cfg)
     if cfg.embedding_inputs:
         unembed_fn = lambda hh: hh @ params["lm_head"]["w"]

@@ -6,9 +6,12 @@
 * Restart-exact: (step, params, optimizer moments) are all captured;
   batches are a pure function of the step, so resumed training is bit
   for bit the uninterrupted run (tests/test_torch_checkpoint.py).
-* Device-free: leaves are stored as host arrays; ``load`` places them on
-  the ``device`` the restarted job runs on (the one-card counterpart of
-  the reference's ``shardings``).
+* Elastic: leaves are stored whole, as host arrays.  ``save`` of a
+  sharded state (DTensor leaves) gathers each leaf on every process and
+  writes on rank 0 alone; ``load`` places the leaves on the ``device``
+  the restarted job runs on and, given a ``mesh`` and ``placements``
+  (the reference's ``shardings``), distributes each onto that mesh, so
+  the same checkpoint resumes on another process count.
 * Async: ``save(..., blocking=False)`` copies every leaf to the host on
   the calling thread, then writes on a background thread, so training
   continues during the I/O and never changes what is written.
@@ -31,7 +34,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import distribute_tensor
 
+from repro_torch.distributed.elastic import full_value
 from repro_torch.models.transformer import tree_leaves, tree_unflatten
 from repro_torch.params import resolve_device
 
@@ -56,9 +62,20 @@ def _to_host(x: torch.Tensor) -> Tuple[np.ndarray, str]:
 
 def save(ckpt_dir: str, step: int, state: Dict[str, Any],
          keep: int = 3, blocking: bool = True) -> threading.Thread:
-    """Write checkpoint atomically; prune to the newest ``keep``."""
+    """Write checkpoint atomically; prune to the newest ``keep``.  Every
+    process of a sharded state must call it (each leaf is gathered whole);
+    only rank 0 writes."""
+    writer = not dist.is_initialized() or dist.get_rank() == 0
+    host = []                                          # device→host snapshot
+    for x in tree_leaves(state):
+        x = full_value(x)
+        if writer:
+            host.append(_to_host(x))
+    if not writer:
+        th = threading.Thread(target=lambda: None, daemon=True)
+        th.start()
+        return th
     os.makedirs(ckpt_dir, exist_ok=True)
-    host = [_to_host(x) for x in tree_leaves(state)]   # device→host snapshot
     meta = {"step": step, "n_leaves": len(host),
             "dtypes": [name for _, name in host], "tree": _index_tree(state)}
 
@@ -97,10 +114,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(steps[-1].split("_")[1])
 
 
-def load(ckpt_dir: str, step: Optional[int] = None,
-         device=None) -> Tuple[int, Dict[str, Any]]:
+def load(ckpt_dir: str, step: Optional[int] = None, device=None,
+         mesh=None, placements=None) -> Tuple[int, Dict[str, Any]]:
     """Restore a checkpoint (the newest unless ``step`` is given) as
-    tensors on ``device`` (the CPU when None)."""
+    tensors on ``device`` (the CPU when None).  With a ``mesh`` (a
+    ``launch.mesh.Mesh``), each leaf whose entry in ``placements`` (a tree
+    of the state's nesting; a None subtree stays plain) is a placement
+    list becomes a DTensor on that mesh, one leaf on the device at a
+    time: the elastic-resume path."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -113,5 +134,15 @@ def load(ckpt_dir: str, step: Optional[int] = None,
         t = torch.from_numpy(np.load(os.path.join(d, f"leaf_{i}.npy")))
         if name == "bfloat16":
             t = t.view(torch.bfloat16)
-        leaves.append(t.to(device=dev, dtype=_DTYPES[name]))
-    return step, tree_unflatten(meta["tree"], leaves)
+        leaves.append(t.to(dtype=_DTYPES[name]))
+
+    def place(tree, pl):
+        if isinstance(tree, dict):
+            return {k: place(v, None if pl is None else pl[k])
+                    for k, v in tree.items()}
+        tree = tree.to(dev)
+        return tree if pl is None else distribute_tensor(
+            tree, mesh.device_mesh, pl)
+
+    return step, place(tree_unflatten(meta["tree"], leaves),
+                       placements if mesh is not None else None)

@@ -8,7 +8,9 @@ all-reduce: ``compress_with_feedback`` runs on the gradient before the
 update, as the reference's runs before its implicit mean-reduce.
 Quantization is bit for bit the reference's: blocks of 256, the scale
 ``max |x| / 127 + 1e-12``, and ``torch.round``, which rounds half to even
-as ``jnp.round`` does.
+as ``jnp.round`` does.  DTensor leaves (the sharded step's) quantize
+their whole value, whose blocks of 256 are the reference's global array's,
+and go back to their placements.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Any, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models.transformer import tree_leaves, tree_map, tree_unflatten
 
@@ -55,6 +58,10 @@ def init_error_feedback(params) -> Any:
 def compress_with_feedback(grads, errors):
     """Quantize (grad + carried error); new error = input - dequantized."""
     def one(g, e):
+        if isinstance(g, DTensor):
+            dg, de = one(g.full_tensor(), e.full_tensor())
+            return (distribute_tensor(dg, g.device_mesh, g.placements),
+                    distribute_tensor(de, e.device_mesh, e.placements))
         x = g.float() + e
         q, s = quantize_int8(x)
         deq = dequantize_int8(q, s, g.shape)

@@ -9,6 +9,10 @@ places eps and the bias correction differently, so its numbers are not
 the reference's.  The step counter, the schedule and the bias corrections
 are f32 tensors on the parameters' device, as the reference computes
 them, so a step needs nothing from the host.
+
+DTensor leaves (the sharded step's) update on their local shards, each
+leaf placed as its parameter; the global norm adds each distinct shard
+once, then sums over the processes.
 """
 from __future__ import annotations
 
@@ -17,7 +21,9 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import collectives as col
 from repro_torch.models.transformer import tree_leaves, tree_map, tree_unflatten
 
 MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -64,9 +70,34 @@ def init_opt_state(params, cfg: OptConfig) -> Dict[str, Any]:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares (in f32), added in
-    ``jax.tree.leaves``' order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    ``jax.tree.leaves``' order.  DTensor leaves: each process adds the
+    shards it is the first holder of (coordinate 0 on every mesh dim that
+    replicates the leaf), then the sums add over the processes."""
+    leaves = tree_leaves(tree)
+    if not isinstance(leaves[0], DTensor):
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    dm = leaves[0].device_mesh
+    coord = dm.get_coordinate()
+    total = sum((torch.sum(torch.square(x.to_local().float()))
+                 for x in leaves
+                 if all(c == 0 for c, p in zip(coord, x.placements)
+                        if p.is_replicate())),
+                torch.zeros((), device=leaves[0].to_local().device))
+    return torch.sqrt(col.all_reduce(total, dm, range(dm.ndim)))
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _placed_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A new local shard ``x`` placed as the DTensor ``like`` (``x`` itself
+    when ``like`` is a plain tensor)."""
+    if not isinstance(like, DTensor):
+        return x
+    return DTensor.from_local(x, like.device_mesh, like.placements,
+                              run_check=False)
 
 
 @torch.no_grad()
@@ -92,11 +123,13 @@ def apply_updates(params, grads, state, cfg: OptConfig
         newp = p.float() - lr * delta
         return newp.to(p.dtype), m32.to(mdt), v32.to(mdt)
 
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
-        tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+    leaves = tree_leaves(params)
+    out = [upd(*map(_local, (p, g, m, v))) for p, g, m, v in zip(
+        leaves, tree_leaves(grads), tree_leaves(state["m"]),
         tree_leaves(state["v"]))]
-    new_p = tree_unflatten(params, [o[0] for o in out])
-    new_m = tree_unflatten(params, [o[1] for o in out])
-    new_v = tree_unflatten(params, [o[2] for o in out])
+    new_p, new_m, new_v = (
+        tree_unflatten(params, [_placed_as(o[i], p)
+                                for o, p in zip(out, leaves)])
+        for i in range(3))
     new_state = {"m": new_m, "v": new_v, "step": step}
     return new_p, new_state, {"grad_norm": gnorm, "lr": lr}

@@ -19,16 +19,28 @@ contiguous groups of rows, as the reference's reshape does, adds each
 microbatch's gradients into an ``accum_dtype`` buffer in order and divides
 by ``grad_accum``.  Each microbatch's backward is remat'd per period, so
 live activation memory is one microbatch deep regardless of global batch.
+
+Under a mesh the parameters and moments are DTensors (the launcher places
+them per ``distributed.sharding``) and the step computes on their local
+shards in FSDP's order (``_sharded_grad``): the same loss and gradients,
+the mean over the whole batch.  Where GSPMD would also split the dense
+layers' products over 'model', here the 'model' processes take other
+rows of the batch instead (ROADMAP §3).  On one process every collective
+still runs, and the numbers are the meshless step's bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.context import Mesh, current, use_rules
 from repro_torch.models import transformer
 from repro_torch.models.transformer import tree_leaves, tree_map, tree_unflatten
 from repro_torch.params import resolve_device
@@ -63,11 +75,14 @@ def batch_to_device(batch: Dict[str, np.ndarray], device
 def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
     """``(params, batch) -> (loss, parts, grads)``: the mean loss over the
     batch, ``train_loss``'s parts (``{}`` when it accumulates), and the
-    gradient tree, accumulated over ``grad_accum`` microbatches."""
-    def value_and_grad(params, batch):
+    gradient tree, accumulated over ``grad_accum`` microbatches.  DTensor
+    parameters take the sharded path (``_sharded_grad``), and their
+    gradients are DTensors with the parameters' placements."""
+    def value_and_grad(params, batch, gather=None):
         aliases = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss, parts = transformer.train_loss(
-            aliases, batch, cfg, remat=tcfg.remat, aux_weight=tcfg.aux_weight)
+            aliases, batch, cfg, remat=tcfg.remat, aux_weight=tcfg.aux_weight,
+            gather=gather)
         grads = torch.autograd.grad(loss, tree_leaves(aliases),
                                     allow_unused=True)
         if any(g is None for g in grads):
@@ -76,12 +91,10 @@ def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
                 tree_unflatten(params, list(grads)))
 
-    def grad_fn(params, batch):
-        device = tree_leaves(params)[0].device
-        batch = batch_to_device(batch, device)
+    def accumulate(params, batch, gather=None):
         ga = tcfg.grad_accum
         if ga == 1:
-            return value_and_grad(params, batch)
+            return value_and_grad(params, batch, gather)
         adt = ACCUM_DTYPES[tcfg.accum_dtype]
         for x in batch.values():
             if x.shape[0] % ga:
@@ -90,10 +103,11 @@ def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
         mb = next(iter(batch.values())).shape[0] // ga
         acc = [torch.zeros(p.shape, dtype=adt, device=p.device)
                for p in tree_leaves(params)]
-        loss = torch.zeros((), dtype=torch.float32, device=device)
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=tree_leaves(params)[0].device)
         for i in range(ga):
             micro = {k: x[i * mb:(i + 1) * mb] for k, x in batch.items()}
-            l, _, g = value_and_grad(params, micro)
+            l, _, g = value_and_grad(params, micro, gather)
             for a, gi in zip(acc, tree_leaves(g)):
                 a.add_(gi.to(adt))
             del g
@@ -102,7 +116,104 @@ def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
             a.div_(ga)
         return loss / ga, {}, tree_unflatten(params, acc)
 
+    def grad_fn(params, batch):
+        leaves = tree_leaves(params)
+        if isinstance(leaves[0], DTensor):
+            return _sharded_grad(params, batch, cfg, tcfg, accumulate)
+        return accumulate(params, batch_to_device(batch, leaves[0].device))
+
     return grad_fn
+
+
+def _row_axes(mesh, rows: int) -> Tuple[str, ...]:
+    """The mesh axes a microbatch's ``rows`` are split over: the fsdp axes
+    where they divide the rows (``batch_specs``' rule), then 'model' where
+    the rows still divide; the processes of the other axes hold the same
+    rows."""
+    fsdp = shd.axes_in(mesh, shd.FSDP_AXES)
+    axes = fsdp if fsdp and rows % shd.axis_size(mesh, fsdp) == 0 else ()
+    n_tp = shd.axis_size(mesh, shd.TP) if shd.TP in mesh.axis_names else 0
+    if n_tp and rows % (shd.axis_size(mesh, axes) * n_tp) == 0:
+        axes += (shd.TP,)
+    return axes
+
+
+def _gatherer(cfg: ArchConfig, place, dm) -> Callable:
+    """``train_loss``'s ``gather`` for local shards placed as ``place``:
+    each leaf made whole by a differentiable all-gather over the mesh dims
+    that shard it, except an MoE feed-forward's leaves, which stay
+    DTensors (their shards) for ``moe.apply_moe``'s expert-parallel
+    paths.  A period's leaves are placed as their stacked leaf, one
+    dimension down (the period axis is never sharded)."""
+    moe_slots = {f"slot{i}" for i, (_, ffn) in enumerate(cfg.block_pattern)
+                 if ffn == "moe"}
+
+    def per_period(pl):
+        if any(p.is_shard(0) for p in pl):
+            raise ValueError(f"a stacked leaf is sharded over periods: {pl}")
+        return [Shard(p.dim - 1) if p.is_shard() else p for p in pl]
+
+    def gather(tree, path):
+        if path == "":
+            return shd.map2(lambda x, pl: col.make_whole(x, pl, dm), tree,
+                            {k: place[k] for k in tree})
+        out = {}
+        for slot, sub in tree.items():
+            out[slot] = {}
+            for key, leaves in sub.items():
+                if slot in moe_slots and key == "ffn":
+                    fn = (lambda x, pl: DTensor.from_local(
+                        x, dm, per_period(pl), run_check=False))
+                else:
+                    fn = (lambda x, pl: col.make_whole(x, per_period(pl), dm))
+                out[slot][key] = shd.map2(fn, leaves,
+                                          place["slots"][slot][key])
+        return out
+
+    return gather
+
+
+def _sharded_grad(params, batch, cfg: ArchConfig, tcfg: TrainConfig,
+                  accumulate: Callable):
+    """The step's gradient on DTensor parameters, computed on local shards
+    in FSDP's order (ZeRO-3): each period's leaves made whole just in time
+    by a differentiable all-gather (inside the period's remat region, so
+    one period at a time, again under recompute), each microbatch's rows
+    split over the processes (``_row_axes``), MoE layers through
+    ``moe_sharded``.  Each leaf's gradient lands on its shards: the
+    gathers' backward reduce-scatters (and the MoE's all_to_all) sum over
+    the processes that shard it, an all-reduce over the mesh dims that
+    replicate it, then a division by the process count, so it is the mean
+    over the whole batch, as the single-process step's.  Runs under the
+    current sharding context, or one on the parameters' mesh."""
+    ctx = current()
+    dm = tree_leaves(params)[0].device_mesh
+    mesh = ctx.mesh if ctx is not None else Mesh(dm)
+    rules = ctx.rules if ctx is not None else {}
+    place = tree_map(lambda p: tuple(p.placements), params)
+    local = tree_map(lambda p: p.to_local(), params)
+    batch = batch_to_device(batch, tree_leaves(local)[0].device)
+
+    ga = tcfg.grad_accum
+    rows = next(iter(batch.values())).shape[0] // ga
+    row_axes = _row_axes(mesh, rows)
+    per = rows // shd.axis_size(mesh, row_axes)
+    r = col.axis_index(dm, row_axes)
+    # this process's rows of each microbatch; microbatches stay contiguous
+    mine = {k: x.reshape(ga, rows, *x.shape[1:])[:, r * per:(r + 1) * per]
+            .reshape(ga * per, *x.shape[1:]) for k, x in batch.items()}
+    with use_rules(mesh, rules, row_axes):
+        loss, parts, grads = accumulate(local, mine,
+                                        _gatherer(cfg, place, dm))
+
+    n = mesh.devices.size
+    out = []
+    for g, pl in zip(tree_leaves(grads), tree_leaves(place)):
+        g = col.sum_replicated(g.contiguous(), pl, dm).div_(n)
+        out.append(DTensor.from_local(g, dm, pl, run_check=False))
+    mean = lambda t: col.all_reduce(t, dm, range(dm.ndim)) / n
+    return (mean(loss), {k: mean(v) for k, v in parts.items()},
+            tree_unflatten(params, out))
 
 
 def update(params, grads, opt_state, tcfg: TrainConfig):

@@ -135,7 +135,8 @@ def _run_launcher(args, tmp_path):
 def test_launcher_completes_and_resumes(tmp_path):
     """``python -m repro_torch.launch.train --arch olmo-1b --tiny --steps 5
     --device cpu --ckpt-dir <tmp>`` runs and checkpoints step 5; a second
-    run with ``--steps 8`` resumes there and checkpoints step 8."""
+    run with ``--steps 8`` resumes there (the reference's elastic line) and
+    checkpoints step 8."""
     ckpt = str(tmp_path / "ckpt")
     base = ["--arch", "olmo-1b", "--tiny", "--device", "cpu",
             "--ckpt-dir", ckpt]
@@ -143,7 +144,7 @@ def test_launcher_completes_and_resumes(tmp_path):
     assert "step     4 loss" in out
     assert checkpoint.latest_step(ckpt) == 5
     out = _run_launcher(base + ["--steps", "8"], tmp_path)
-    assert out.startswith("resumed step 5 on cpu")
+    assert out.startswith("elastic-resumed step 5 onto 1-device mesh")
     assert "step     7 loss" in out
     assert checkpoint.latest_step(ckpt) == 8
 
