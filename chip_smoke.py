@@ -100,7 +100,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
     8, outputs and gradients within 1e-5 of the local path's, with CUDA
     event times beside it; ``elastic.plan``'s bytes per card for
     full-width qwen3-8b and olmo-1b training state on 2, 4 and 8 H100s
-    (reckoned from shapes); no flash or decode launch.
+    (reckoned from shapes); no flash or decode launch;
+14. the dry-run (``dryrun``; ``repro_torch.launch.dryrun``, each in a
+    subprocess of its own, under a fake process group): the dry-run's
+    (1, 1) counterpart of phase 12's full-width step, on fake tensors of
+    the card, must count exactly the FLOPs that ``FlopCounterMode`` counts
+    over one real step of it (run here meanwhile, no kernel launched),
+    its memory peak (``MemTracker``) beside the step's measured one; and
+    the reference's cells olmo-1b x train_4k and xlstm-350m x long_500k on
+    the 16x16 mesh through the dry-run's command line (fake tensors of the
+    card, its default), each one's result and wall.
 
 Each serving phase also holds its profiled prefill's device time against
 CUDA events around the same prefill.  Then a ``{"kernels": [...]}`` line
@@ -1803,6 +1812,157 @@ def phase_distributed(card: str):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 14: dryrun
+# --------------------------------------------------------------------------
+# phase train's full-width step, once, as the launcher runs it
+DRYRUN_ARGS = ["--arch", "olmo-1b", "--steps", "1", "--seq-len", "4096",
+               "--global-batch", "8", "--grad-accum", "4", "--remat", "full",
+               "--device", "cuda", "--dtype", "float32", "--seed", "0"]
+# the same step as the dry-run's (1, 1) cell, on fake tensors of the card
+DRYRUN_STEP = """
+import json, torch
+from repro_torch import configs
+from repro_torch.configs import Shape
+from repro_torch.launch import dryrun
+from repro_torch.training import TrainConfig
+with dryrun.fake_mesh((1, 1), ("data", "model"), "cuda") as mesh:
+    r = dryrun.trace_step(configs.get_config("olmo-1b"),
+                          Shape("train", "train", 4096, 8), mesh,
+                          tcfg=TrainConfig(remat="full", grad_accum=4),
+                          dtype=torch.float32, device="cuda")
+print(json.dumps(r))
+"""
+# the reference's own cells, through the dry-run's command line
+DRYRUN_CELLS = (("olmo-1b", "train_4k", ["--by-label"]),
+                ("xlstm-350m", "long_500k", []))
+
+
+def _start(argv, out: Path):
+    """A subprocess of this checkout's package writing its output to
+    ``out``; (process, file, start time)."""
+    fh = open(out, "w")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable] + argv, env=env, stdout=fh,
+                            stderr=subprocess.STDOUT, cwd=ROOT)
+    return proc, fh, time.perf_counter()
+
+
+def _finish(job, what: str) -> float:
+    """Wait for a ``_start`` job; its wall in seconds.  Raises with its
+    output's tail when it failed."""
+    proc, fh, t0 = job
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        fh.close()
+    if rc:
+        tail = Path(fh.name).read_text()[-3000:]
+        raise SystemExit(f"dryrun: {what} exited {rc}:\n{tail}")
+    return time.perf_counter() - t0
+
+
+def dryrun_real_step() -> dict:
+    """One full-width olmo-1b step through the launcher's parts (its NCCL
+    (1, 1) mesh, DTensor state), as phase train runs it: FLOPs counted by
+    ``FlopCounterMode`` and the peak of allocated memory over the step."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import train as launcher
+    args = launcher.parse_args(DRYRUN_ARGS)
+    run = launcher.setup(args)
+    _, state = launcher.init_or_resume(run, args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log = []
+    with FlopCounterMode(display=False) as fc:
+        launcher.train(run, args, state, 0, log)
+    torch.cuda.synchronize()
+    # no wall: the dry-runs trace on this host's cores meanwhile (phases
+    # train and distributed time this step)
+    row = dict(flops=fc.get_total_flops(),
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               loss=log[0]["loss"])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_dryrun(card: str):
+    """The dry-run (``repro_torch.launch.dryrun``) held against the card:
+    (a) the dry-run's (1, 1) counterpart of phase train's step (full-width
+    olmo-1b, f32, seq 4096, global batch 8 in 4 microbatches, remat
+    ``full``) on fake tensors of the card must count the FLOPs that
+    ``FlopCounterMode`` counts over one real step of it, exactly; its
+    memory peak stands beside the step's measured one, with their ratio;
+    (b) the reference's cells olmo-1b x train_4k and xlstm-350m x
+    long_500k on the single-pod mesh, on fake tensors of the card (the
+    command line's default), each cell's result and wall.  Every
+    dry-run runs in a subprocess of its own, where its fake process group
+    never meets this process's NCCL group; they run while the real step
+    does.  No kernel launches."""
+    out = ROOT / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    jobs = {"counterpart": _start(["-c", DRYRUN_STEP], out / "step.log")}
+    for arch, shape, extra in DRYRUN_CELLS:
+        jobs[f"{arch}|{shape}"] = _start(
+            ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--mesh", "single", "--out", str(out / f"{arch}.json")]
+            + extra, out / f"{arch}.log")
+    try:
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        gc.collect()
+        torch.cuda.empty_cache()
+        _reset_launches()
+        real = dryrun_real_step()
+        launches = _launches()
+        walls = {name: _finish(job, name) for name, job in jobs.items()}
+    finally:
+        for proc, fh, _ in jobs.values():
+            proc.kill()
+            proc.wait()
+            fh.close()
+    dry = json.loads((out / "step.log").read_text().strip().splitlines()[-1])
+    cells = {}
+    for arch, shape, _ in DRYRUN_CELLS:
+        key = f"{arch}|{shape}|single"
+        cells[key] = dict(json.loads((out / f"{arch}.json").read_text())[key],
+                          wall_s=walls[f"{arch}|{shape}"])
+    from repro_torch import configs
+    cfg = configs.get_config("olmo-1b")
+    counterpart = dict(
+        flops_dryrun=dry["flops"], flops_real_step=real["flops"],
+        flops_equal=dry["flops"] == real["flops"],
+        flops_from_shapes_executed=train_flops(cfg, 8 * 4096, 4096)[
+            "executed"],
+        peak_dryrun_gb=dry["memory"]["peak"] / 1e9,
+        peak_real_step_gb=real["peak_bytes"] / 1e9,
+        peak_ratio_dryrun_over_real=dry["memory"]["peak"]
+        / real["peak_bytes"],
+        memory_dryrun=dry["memory"], memory_source="MemTracker",
+        collectives_dryrun={k: dry[k] for k in dry if k.startswith("coll")},
+        n_collectives_dryrun=dry["n_collectives"],
+        bytes_accessed_dryrun=dry["bytes_accessed"],
+        trace_s=dry["trace_s"], wall_s=walls["counterpart"],
+        real_step_loss=real["loss"])
+    emit("dryrun", card=card, counterpart=counterpart, cells=cells,
+         launches=launches)
+    bad = []
+    if not counterpart["flops_equal"]:
+        bad.append(f"the dry-run counts {dry['flops']} FLOPs, the real step "
+                   f"{real['flops']}")
+    if any(c["status"] != "ok" for c in cells.values()):
+        bad.append(f"a reference cell is not ok: "
+                   f"{[c['status'] for c in cells.values()]}")
+    if any(n for n in launches.values()):
+        bad.append(f"kernel launches in the real step: {launches}")
+    if bad:
+        raise SystemExit(f"dryrun: {bad}")
+    return launches
+
+
 # the kernels whose compiled code phase 1 reports: name -> a pattern of
 # its mangled name (the decode kernel at bf16, D 128, groups up to 4; the
 # CUDA-core GEMM on its 16-byte path, and flash at f32, D 128)
@@ -1848,7 +2008,7 @@ def compiled_kernels(lib_path: Path):
 
 PHASES = ("kernels", "gemm", "tiny", "serve", "serve_f32", "path",
           "serve_moe", "serve_dense", "serve_ssm", "serve_vlm_audio", "train",
-          "distributed")
+          "distributed", "dryrun")
 # the kernels line: name, launch counter, source, TPU kernel, headline row
 KERNELS = [
     ("flash_attention_wgmma_bf16", "flash_attention/wgmma",
@@ -1939,7 +2099,8 @@ def main(argv=None) -> int:
              ("serve_dense", phase_serve_dense),
              ("serve_ssm", phase_serve_ssm),
              ("serve_vlm_audio", phase_serve_vlm_audio),
-             ("train", phase_train), ("distributed", phase_distributed)]
+             ("train", phase_train), ("distributed", phase_distributed),
+             ("dryrun", phase_dryrun)]
     for phase, run in paths:
         if phase in phases:
             t0 = time.perf_counter()

@@ -63,11 +63,13 @@ class TrainConfig:
 
 def batch_to_device(batch: Dict[str, np.ndarray], device
                     ) -> Dict[str, torch.Tensor]:
-    """A ``TokenDataset`` batch (numpy) → tensors on ``device``; token ids
-    and labels become ``long`` for indexing."""
+    """A ``TokenDataset`` batch (numpy, or tensors) → tensors on
+    ``device``; token ids and labels become ``long`` for indexing."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))
+        t = t.to(device)
         out[k] = t.long() if k in ("tokens", "labels") else t
     return out
 

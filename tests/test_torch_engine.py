@@ -122,14 +122,51 @@ def test_engine_matches_jax_with_vlm_audio(vlm_audio_models, policy,
         assert (r.tokens.shape[1] == 0) == (r.arch == "hubert-xlarge"), r.rid
 
 
-def _check_engines(models, policy, mechanism, window, archs):
+# the batched engine loop's layouts (ROADMAP §3.2): co-resident slots,
+# the same with each prompt's prefill as one monolithic step, and two
+# devices as a prefill pool and a decode pool
+LAYOUTS = {"slots4": dict(batch_slots=4),
+           "slots4_monolithic": dict(batch_slots=4, chunked_prefill=False),
+           "prefill_decode_pools": dict(n_devices=2,
+                                        device_roles=["prefill", "decode"])}
+# each arch mix with PREMA's preemptive case, its requests close enough
+# together that every layout preempts and restores (four slots admit the
+# dense and VLM/audio mixes' requests at 1e-4 apart without preempting)
+MIXES = {"dense": ("models", ARCHS, ("prema", "dynamic", 1e-6)),
+         "moe": ("moe_models", MOE_ARCHS, MOE_CASES[0]),
+         "ssm": ("ssm_models", SSM_ARCHS, SSM_CASES[0]),
+         "vlm_audio": ("vlm_audio_models", VLM_AUDIO_ARCHS,
+                       ("prema", "dynamic", 1e-6))}
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("mix", MIXES)
+def test_batched_engine_matches_jax(request, monkeypatch, mix, layout):
+    """The batched loop with ``execute=True`` (the port's executor starts,
+    restores and steps several residents per iteration) against the
+    reference's on the same requests.  Every case preempts, and the
+    port's engine restores an executor state at least once."""
+    fixture, archs, (policy, mechanism, window) = MIXES[mix]
+    restores = []
+    restore = tserving.PreemptibleExecutor.restore
+    monkeypatch.setattr(tserving.PreemptibleExecutor, "restore",
+                        staticmethod(lambda st: restores.append(1)
+                                     or restore(st)))
+    _check_engines(request.getfixturevalue(fixture), policy, mechanism,
+                   window, archs, **LAYOUTS[layout])
+    assert restores
+
+
+def _check_engines(models, policy, mechanism, window, archs, **layout):
+    """Both engines on the same requests; every result and the summary
+    must agree, and some request must be preempted or killed."""
     jm, tm = models
     results = {}
     engines = {}
     for key, mod, ms, hw in (("jax", jserving, jm, JAX_TPU_V5E),
                              ("torch", tserving, tm, TPU_V5E)):
         eng = mod.ServingEngine(ms, cfg=mod.EngineConfig(
-            hw=hw, policy=policy, mechanism=mechanism))
+            hw=hw, policy=policy, mechanism=mechanism, **layout))
         results[key] = sorted(eng.run(_requests(mod, 7, window=window,
                                                 archs=archs)),
                               key=lambda r: r.rid)
