@@ -82,7 +82,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
     seq 4096, global batch 8 in 4 microbatches (the chunked CE), remat
     ``full``, 4 steps with an async checkpoint after step 2, then a
     restart from it whose steps 3-4 must leave every parameter and moment
-    equal bit for bit; the reference's lr at every step, no flash or
+    equal bit for bit, and the same two steps from it without the mesh
+    (``make_train_step`` on the local tensors), also equal bit for bit,
+    their walls beside the mesh steps'; the reference's lr at every step,
+    no flash or
     decode launch, and one more step profiled twice by kernel family,
     with where the device waited (the longest gaps between its events);
     all of it under the launcher's default ``--mesh host``: an NCCL world of one,
@@ -90,8 +93,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 13. the distributed path (``distributed``): under that NCCL group and
     mesh, full-width olmo-1b trains 2 steps through the launcher's parts
     and then, its state freed, 2 meshless steps (``make_train_step``) from
-    the same seed, which must leave every parameter and moment equal (bit
-    for bit expected; the largest difference within TINY_TOL), with each
+    the same seed, which must leave every parameter and moment equal bit
+    for bit (the mesh step runs the tensor-parallel code at a 'model' size
+    of 1), with each
     run's step wall, tokens/s and peak memory, and one more step of each
     profiled as phase ``train`` profiles its step; the mesh run's state
     resharded onto a fresh (1, 1) mesh and back, losslessly; one
@@ -109,7 +113,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
     its memory peak (``MemTracker``) beside the step's measured one; and
     the reference's cells olmo-1b x train_4k and xlstm-350m x long_500k on
     the 16x16 mesh through the dry-run's command line (fake tensors of the
-    card, its default), each one's result and wall.
+    card, its default), and qwen3-8b x train_4k at 12 of its 36 layers,
+    each one's result and wall; a train cell's FLOPs per device over the
+    analytic count (olmo-1b's within 0.9-1.1, its dense layers split over
+    'model'), collective bytes by kind and peak.
 
 Each serving phase also holds its profiled prefill's device time against
 CUDA events around the same prefill.  Then a ``{"kernels": [...]}`` line
@@ -1394,11 +1401,15 @@ def train_full_width(card: str) -> dict:
     after step 4, the cadence's); then the step-2 checkpoint restored onto
     the mesh and steps 3-4 run again, every parameter and moment leaf
     required equal bit for bit; a finite loss and grad norm and the
-    reference's lr at every step; no flash or decode launch.  Then one
-    more step profiled, twice."""
+    reference's lr at every step; no flash or decode launch.  The mesh
+    step runs the tensor-parallel code at a 'model' size of 1: the
+    checkpoint's steps 3-4 are also taken without the mesh
+    (``make_train_step`` on the local tensors), and must leave the same
+    bits, their walls beside the mesh steps'.  Then one more step
+    profiled, twice."""
     from repro_torch.launch import train as launcher
-    from repro_torch.models.transformer import tree_leaves
-    from repro_torch.training import checkpoint
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.training import checkpoint, make_train_step
 
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     args = launcher.parse_args(TRAIN_ARGS + ["--ckpt-dir", str(TRAIN_CKPT)])
@@ -1434,6 +1445,23 @@ def train_full_width(card: str) -> dict:
     del again
     gc.collect()
     torch.cuda.empty_cache()
+    # the same two steps from the checkpoint, meshless on the local tensors
+    step, plain = launcher.restore(run, str(TRAIN_CKPT), step=2)
+    plain = tree_map(_local, plain)
+    step_fn = make_train_step(cfg, run.tcfg)
+    meshless = []
+    for i in range(step, args.steps):
+        t = time.perf_counter()
+        plain["params"], plain["opt"], m = step_fn(
+            plain["params"], plain["opt"], run.data.batch_at(i))
+        meshless.append({"step": i + 1, **{k: float(m[k]) for k in
+                                           ("loss", "grad_norm", "lr")},
+                         "wall_s": time.perf_counter() - t})
+    meshless_differ = sum(not torch.equal(_local(a), c) for a, c in
+                          zip(tree_leaves(state), tree_leaves(plain)))
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
     prof = profile_train_step(run, state["params"], state["opt"],
                               run.data.batch_at(args.steps))
     prof_again = profile_train_step(run, state["params"], state["opt"],
@@ -1451,6 +1479,9 @@ def train_full_width(card: str) -> dict:
         microbatch=micro, remat=args.remat,
         chunked_ce=micro * s * cfg.vocab_size > 2 ** 28,
         param_init_s=init_s, steps=log, restart_steps=log2,
+        meshless_steps=meshless, meshless_leaves_differ=meshless_differ,
+        restart_wall_over_meshless=sum(e["wall_s"] for e in log2)
+        / sum(e["wall_s"] for e in meshless),
         checkpoints_written=saved, checkpoint_load_s=load_s,
         train_wall_s=train_s,
         outside_steps_s=train_s - sum(e["wall_s"] for e in log),
@@ -1475,10 +1506,14 @@ def train_full_width(card: str) -> dict:
     bad = []
     if differ:
         bad.append(f"{differ} of {n_leaves} leaves differ after restart")
+    if meshless_differ:
+        bad.append(f"{meshless_differ} of {n_leaves} leaves differ between "
+                   "the mesh and the meshless steps 3-4")
     if [e["step"] for e in log] != [1, 2, 3, 4] or [e["step"] for e in
-                                                   log2] != [3, 4]:
+                                                   log2] != [3, 4] \
+            or [e["step"] for e in meshless] != [3, 4]:
         bad.append("wrong steps run")
-    if not all(np.isfinite(e[k]) for e in log + log2
+    if not all(np.isfinite(e[k]) for e in log + log2 + meshless
                for k in ("loss", "grad_norm")):
         bad.append("a non-finite loss or grad norm")
     if any(abs(a - r) > 1e-6 * r for a, r in zip(row["lr"], lr_ref)):
@@ -1545,7 +1580,7 @@ def distributed_olmo(run, args) -> dict:
     the state resharded onto a fresh (1, 1) mesh and back, lossless; then,
     the first state freed, 2 meshless steps (``make_train_step``) from the
     same seed, whose every parameter and moment must equal the mesh run's
-    (bit for bit expected; the largest difference within TINY_TOL).  Each
+    bit for bit.  Each
     run's peak is read before one more step of it is profiled
     (``profile_train_step``, the update's result dropped)."""
     from torch.distributed.tensor import DTensor
@@ -1796,8 +1831,9 @@ def phase_distributed(card: str):
         bad.append(f"backend {backend}, not nccl")
     if not olmo["params_and_moments_dtensors_on_cuda"]:
         bad.append("the mesh run's state is not DTensors on the card")
-    if olmo["max_abs_diff"] > TINY_TOL:
-        bad.append(f"mesh and meshless runs differ by {olmo['max_abs_diff']}")
+    if olmo["leaves_differ"]:
+        bad.append(f"{olmo['leaves_differ']} leaves of the mesh and meshless "
+                   f"runs differ, by up to {olmo['max_abs_diff']}")
     if olmo["reshard"]["onto_fresh_differ"] or olmo["reshard"]["back_differ"] \
             or not olmo["reshard"]["back_on_the_run_mesh"]:
         bad.append(f"resharding is not lossless: {olmo['reshard']}")
@@ -1836,6 +1872,20 @@ print(json.dumps(r))
 # the reference's own cells, through the dry-run's command line
 DRYRUN_CELLS = (("olmo-1b", "train_4k", ["--by-label"]),
                 ("xlstm-350m", "long_500k", []))
+# qwen3-8b x train_4k (GQA whose 8 KV heads do not divide 16, qk-norm, a
+# vocabulary of 151,936 over 16) at 12 of its 36 layers, widths full: at
+# full depth its trace alone takes some five minutes
+DRYRUN_QWEN = """
+import json
+from repro_torch.launch import dryrun
+print(json.dumps(dryrun.run_cell("qwen3-8b", "train_4k", False, verbose=False,
+                                 cfg_overrides={"n_layers": 12})))
+"""
+# the olmo-1b train cell's FLOPs per device over the analytic count, and
+# its peak no higher than the 14.83 GB it read with whole dense leaves on
+# every 'model' rank (16.42x the analytic count)
+DRYRUN_FACTOR = (0.9, 1.1)
+DRYRUN_PEAK_GB = 14.83
 
 
 def _start(argv, out: Path):
@@ -1897,7 +1947,11 @@ def phase_dryrun(card: str):
     memory peak stands beside the step's measured one, with their ratio;
     (b) the reference's cells olmo-1b x train_4k and xlstm-350m x
     long_500k on the single-pod mesh, on fake tensors of the card (the
-    command line's default), each cell's result and wall.  Every
+    command line's default), and qwen3-8b x train_4k at a third of its
+    depth, each cell's result and wall, a train cell's FLOPs per device
+    over the analytic count, collective bytes by kind and peak beside
+    it; olmo-1b's factor must lie in DRYRUN_FACTOR (the dense layers
+    split over 'model') and its peak at or under DRYRUN_PEAK_GB.  Every
     dry-run runs in a subprocess of its own, where its fake process group
     never meets this process's NCCL group; they run while the real step
     does.  No kernel launches."""
@@ -1910,6 +1964,7 @@ def phase_dryrun(card: str):
             ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
              shape, "--mesh", "single", "--out", str(out / f"{arch}.json")]
             + extra, out / f"{arch}.log")
+    jobs["qwen3-8b|train_4k"] = _start(["-c", DRYRUN_QWEN], out / "qwen.log")
     try:
         torch.use_deterministic_algorithms(True)
         torch.utils.deterministic.fill_uninitialized_memory = False
@@ -1930,6 +1985,17 @@ def phase_dryrun(card: str):
         key = f"{arch}|{shape}|single"
         cells[key] = dict(json.loads((out / f"{arch}.json").read_text())[key],
                           wall_s=walls[f"{arch}|{shape}"])
+    cells["qwen3-8b|train_4k|single"] = dict(
+        json.loads((out / "qwen.log").read_text().strip().splitlines()[-1]),
+        wall_s=walls["qwen3-8b|train_4k"])
+    train_cells = {k: dict(
+        flops_over_analytic=c["flops_per_device"]
+        / c["analytic_flops_per_device"],
+        collective_gb={k2[len("coll_"):]: v / 1e9
+                       for k2, v in c["collectives"].items()},
+        peak_gb=c["memory"]["peak"] / 1e9, grad_accum=c["grad_accum"],
+        overrides=c["deploy_overrides"])
+        for k, c in cells.items() if c.get("grad_accum")}
     from repro_torch import configs
     cfg = configs.get_config("olmo-1b")
     counterpart = dict(
@@ -1948,7 +2014,7 @@ def phase_dryrun(card: str):
         trace_s=dry["trace_s"], wall_s=walls["counterpart"],
         real_step_loss=real["loss"])
     emit("dryrun", card=card, counterpart=counterpart, cells=cells,
-         launches=launches)
+         train_cells=train_cells, launches=launches)
     bad = []
     if not counterpart["flops_equal"]:
         bad.append(f"the dry-run counts {dry['flops']} FLOPs, the real step "
@@ -1956,6 +2022,10 @@ def phase_dryrun(card: str):
     if any(c["status"] != "ok" for c in cells.values()):
         bad.append(f"a reference cell is not ok: "
                    f"{[c['status'] for c in cells.values()]}")
+    olmo = train_cells.get("olmo-1b|train_4k|single", {})
+    if not (DRYRUN_FACTOR[0] <= olmo.get("flops_over_analytic", 0)
+            <= DRYRUN_FACTOR[1]) or olmo["peak_gb"] > DRYRUN_PEAK_GB:
+        bad.append(f"olmo-1b x train_4k: {olmo}")
     if any(n for n in launches.values()):
         bad.append(f"kernel launches in the real step: {launches}")
     if bad:

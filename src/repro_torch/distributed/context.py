@@ -19,12 +19,22 @@ rules (:class:`Mesh`, which ``launch/mesh.py``'s ``make_mesh`` builds, or
 rows are already split on this process (the sharded train step splits
 the batch); empty, every process holds the whole batch, as the
 reference's global arrays do.
+
+``ShardCtx.tp`` marks the sharded train step's context, in which the
+parameters the rules split over 'model' reach the model as this
+process's shards.  There the model asks :func:`tp_split` where the
+reference writes ``hint(x, ..., name, ...)``: whether the rules map the
+logical ``name`` to 'model' and 'model' divides the dimension (``hint``'s
+guard), and if so the axis, its size and this process's index; it then
+computes its block of that dimension and joins the blocks with the
+collectives of ``collectives.py``.  Anywhere else ``tp_split`` is None
+and the model computes whole.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +42,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
 Axes = Union[None, str, Tuple[str, ...]]
+TP = "model"    # the tensor-parallel mesh axis (``sharding.TP``)
 
 _tls = threading.local()
 
@@ -97,12 +108,48 @@ def current() -> Optional["ShardCtx"]:
     return getattr(_tls, "ctx", None)
 
 
+class Split(NamedTuple):
+    """One dimension split over the 'model' axis: the ``DeviceMesh``, the
+    axes for ``collectives.py`` (``("model",)``), their process count
+    ``n`` and this process's ``index``, whose block of a dimension of
+    ``dim`` starts at ``index * dim // n``."""
+    mesh: DeviceMesh
+    axes: Tuple[str, ...]
+    n: int
+    index: int
+
+    def block(self, dim: int) -> Tuple[int, int]:
+        """(start, length) of this process's block of ``dim``."""
+        size = dim // self.n
+        return self.index * size, size
+
+
 class ShardCtx:
     def __init__(self, mesh, rules: Dict[str, Axes],
-                 row_axes: Tuple[str, ...] = ()):
+                 row_axes: Tuple[str, ...] = (), tp: bool = False):
         self.mesh = mesh
         self.rules = dict(rules)
         self.row_axes = tuple(row_axes)
+        self.tp = tp
+
+    def splits(self, name: str) -> bool:
+        """Whether the rules map the logical ``name`` to 'model' alone."""
+        return self.rules.get(name) in (TP, (TP,))
+
+    def tp_split(self, name: str, dim: int) -> Optional[Split]:
+        """The split of a dimension of ``dim`` that the reference hints as
+        ``name``, in the sharded train step's context (``tp``) where the
+        rules map ``name`` to 'model' and 'model' divides ``dim``; else
+        None (the dimension is whole on every process)."""
+        if not (self.tp and self.splits(name)) \
+                or TP not in self.mesh.axis_names:
+            return None
+        dm = self.mesh.device_mesh
+        i = self.mesh.axis_names.index(TP)
+        n = dm.size(i)
+        if dim % n:
+            return None
+        return Split(dm, (TP,), n, int(dm.get_coordinate()[i]))
 
     def spec(self, *logical: Optional[str]) -> PartitionSpec:
         axes = []
@@ -140,6 +187,13 @@ def use_ctx(ctx: Optional[ShardCtx]):
 
 def use_rules(mesh, rules: Dict[str, Axes], row_axes: Tuple[str, ...] = ()):
     return use_ctx(ShardCtx(mesh, rules, row_axes))
+
+
+def tp_split(name: str, dim: int) -> Optional[Split]:
+    """The current context's :meth:`ShardCtx.tp_split`; None outside a
+    context."""
+    ctx = current()
+    return None if ctx is None else ctx.tp_split(name, dim)
 
 
 def hint(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:

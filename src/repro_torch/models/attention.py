@@ -15,6 +15,19 @@ Training runs ``attn_forward`` and ``cross_attn_forward``: the reference's
 differentiable torch, the probabilities cast to ``q.dtype`` before PV as
 the reference casts them.  The kernels have no backward and refuse inputs
 that require grad, so training never reaches them.
+
+In the sharded train step's context both split over 'model' as the
+reference's rules say (``distributed.context.tp_split``):
+
+* ``heads: model`` (the query heads divide): q, ``bq`` and ``wo`` hold
+  this process's heads, k and v its KV heads when the KV heads divide
+  too; else ``wk``/``wv`` are replicated, and each process projects the
+  KV heads its query heads read (query head h reads KV head h // g);
+  ``wo`` is row-parallel, its partial sums reduced over 'model';
+* ``qseq: model`` (they do not): the queries of this process's block of
+  rows against the keys and values of every row, computed whole from
+  the whole input (no collective), the causal mask over global row
+  indices; the output rows are gathered back over 'model'.
 """
 from __future__ import annotations
 
@@ -23,10 +36,12 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.context import Split, tp_split
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import (apply_rope, normal_leaf, rms_norm_head,
-                                       stacked)
+from repro_torch.models.layers import (apply_rope, normal_leaf, reduce_over,
+                                       rms_norm_head, stacked)
 
 Params = dict
 NEG_INF = -1e30
@@ -165,14 +180,16 @@ def _dense_attend(q, k, v, dh: int, mask: Optional[torch.Tensor]):
     return torch.einsum("bhst,bthk->bshk", probs, v)
 
 
-def _chunked_attend(q, k, v, dh: int, causal: bool, kv_chunk: int):
+def _chunked_attend(q, k, v, dh: int, causal: bool, kv_chunk: int,
+                    row0: int = 0):
     """Online-softmax streaming over KV chunks of ``kv_chunk`` keys, in
     f32, every chunk computed in full (causal masking, no skipping), as
-    the reference's ``lax.scan`` does."""
+    the reference's ``lax.scan`` does.  Query row i is global row
+    ``row0 + i``."""
     b, s, h, _ = q.shape
     t = k.shape[1]
     qf = q.float() * dh ** -0.5
-    rows = torch.arange(s, device=q.device)[:, None]
+    rows = torch.arange(row0, row0 + s, device=q.device)[:, None]
     f32 = dict(dtype=torch.float32, device=q.device)
     m = torch.full((b, h, s), NEG_INF, **f32)
     l = torch.zeros((b, h, s), **f32)
@@ -197,11 +214,12 @@ def _chunked_attend(q, k, v, dh: int, causal: bool, kv_chunk: int):
 
 
 def _gqa_attend(q, k, v, mask: Optional[torch.Tensor],
-                causal_for_chunks: Optional[bool] = None):
+                causal_for_chunks: Optional[bool] = None, row0: int = 0):
     """q: (B,S,Hq,Dh); k,v: (B,T,Hkv,Dh).  KV heads are broadcast up to the
     query heads (head h reads KV head h // g, ``jnp.repeat``).  With
     ``causal_for_chunks`` not None, T > ``CHUNK_THRESHOLD`` and T a
-    multiple of ``KV_CHUNK``, the chunked online softmax runs."""
+    multiple of ``KV_CHUNK``, the chunked online softmax runs, query row
+    i being global row ``row0 + i``."""
     b, s, hq, dh = q.shape
     hkv, t = k.shape[2], k.shape[1]
     g = hq // hkv
@@ -210,26 +228,71 @@ def _gqa_attend(q, k, v, mask: Optional[torch.Tensor],
         v = v[:, :, :, None].expand(b, t, hkv, g, dh).reshape(b, t, hq, dh)
     if (causal_for_chunks is not None and t > CHUNK_THRESHOLD
             and t % KV_CHUNK == 0):
-        return _chunked_attend(q, k, v, dh, causal_for_chunks, KV_CHUNK)
+        return _chunked_attend(q, k, v, dh, causal_for_chunks, KV_CHUNK,
+                               row0)
     return _dense_attend(q, k, v, dh, mask)
 
 
-def _causal_mask(s: int, t: int, device) -> torch.Tensor:
-    """(1,1,S,T) mask; query i may see key j iff j <= i."""
+def _causal_mask(s: int, t: int, device, offset: int = 0) -> torch.Tensor:
+    """(1,1,S,T) mask; query i may see key j iff j <= i + offset."""
     qi = torch.arange(s, device=device)[:, None]
     kj = torch.arange(t, device=device)[None, :]
-    return (kj <= qi)[None, None]
+    return (kj <= qi + offset)[None, None]
+
+
+def _kv_heads(p: Params, cfg: ArchConfig, heads: Optional[Split]):
+    """(p, idx): where the query heads split over 'model' but the KV heads
+    do not divide it (``wk``/``wv`` replicated), ``p`` with ``wk``, ``wv``
+    and their biases cut to the KV heads this process's query heads read
+    (contiguous, since its query heads are), and ``idx``, the KV head of
+    each local query head among them: query head h reads KV head h // g.
+    Else ``p`` itself and None."""
+    if heads is None or cfg.n_kv_heads % heads.n == 0:
+        return p, None
+    hq, g = cfg.n_heads // heads.n, cfg.n_heads // cfg.n_kv_heads
+    q0 = heads.index * hq
+    lo, hi = q0 // g, (q0 + hq - 1) // g + 1
+    cut = {k: (p[k][:, lo:hi] if k in ("wk", "wv") else p[k][lo:hi])
+           for k in ("wk", "wv", "bk", "bv") if k in p}
+    idx = (q0 + torch.arange(hq, device=p["wk"].device)) // g - lo
+    return {**p, **cut}, idx
+
+
+def _train_attend(x: torch.Tensor, kv_src: Optional[torch.Tensor], p: Params,
+                  cfg: ArchConfig) -> torch.Tensor:
+    """Training attention of x (B,S,D) over ``kv_src`` (cross-attention: no
+    RoPE, no mask) or over x itself (``kv_src`` None: RoPE, causal when
+    the config is), head-parallel or sequence-parallel over 'model' where
+    the rules split it (see the module's docstring)."""
+    s = x.shape[1]
+    causal = kv_src is None and cfg.causal
+    # reference attention.py:144-152: hint(q, "batch", "qseq", "heads",
+    # None); k and v "kv_seq" (None in training), "heads"
+    heads = tp_split("heads", cfg.n_heads)
+    rows = None if heads else tp_split("qseq", s)
+    row0, s_q = rows.block(s) if rows else (0, s)
+    xq = x if rows is None else x.narrow(1, row0, s_q)
+    q = _project_q(xq, p, cfg)
+    p_kv, kv_idx = _kv_heads(p, cfg, heads)
+    k, v = _project_kv(x if kv_src is None else kv_src, p_kv, cfg)
+    if kv_src is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+        q = apply_rope(q, positions[:, row0:row0 + s_q], cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_idx is not None:
+        k, v = k.index_select(2, kv_idx), v.index_select(2, kv_idx)
+    mask = _causal_mask(s_q, s, x.device, row0) if causal else None
+    out = _gqa_attend(q, k, v, mask, causal_for_chunks=causal, row0=row0)
+    # reference attention.py:172, :224: hint(out @ wo, "batch", "qseq",
+    # None), so the rows come back whole and the heads' sums are added
+    y = reduce_over(_out_proj(out, p["wo"]), heads)
+    return y if rows is None else col.all_gather(y, 1, rows.mesh, rows.axes)
 
 
 def attn_forward(x: torch.Tensor, p: Params, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence self-attention for training (and encoders): dense, or
     the chunked online softmax beyond ``CHUNK_THRESHOLD`` keys."""
-    s = x.shape[1]
-    positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _project_qkv(x, p, cfg, positions)
-    mask = _causal_mask(s, s, x.device) if cfg.causal else None
-    out = _gqa_attend(q, k, v, mask, causal_for_chunks=cfg.causal)
-    return _out_proj(out, p["wo"])
+    return _train_attend(x, None, p, cfg)
 
 
 def cross_attn_forward(x: torch.Tensor, p: Params, cfg: ArchConfig,
@@ -237,7 +300,4 @@ def cross_attn_forward(x: torch.Tensor, p: Params, cfg: ArchConfig,
     """x: (B,S,D) text; img_h: (B,Timg,D) projected image states.  No RoPE,
     no mask; dense for every config's image tokens (at most 2048), and
     chunked beyond, as the reference."""
-    q = _project_q(x, p, cfg)
-    k, v = _project_kv(img_h, p, cfg)
-    out = _gqa_attend(q, k, v, None, causal_for_chunks=False)
-    return _out_proj(out, p["wo"])
+    return _train_attend(x, img_h, p, cfg)

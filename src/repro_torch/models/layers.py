@@ -6,6 +6,13 @@ count ``n`` (``None`` for unstacked leaves); stacked leaves are filled one
 period at a time so a full-size model never holds an f32 copy of all its
 weights.  The random bits differ from ``jax.random``; the tests share
 weights through ``repro_torch.params.params_from_numpy`` instead.
+
+In the sharded train step's context the MLP, the embedding and the
+cross-entropy split over 'model' as the reference's rules split d_ff and
+the vocabulary (``distributed.context.tp_split``): the MLP's in-projections
+hold local columns and its out-projection local rows, reduced over
+'model'; the embedding table and the unembedding hold local vocabulary
+rows, and the cross-entropy combines the local log-sums.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.context import Split, tp_split
 
 Params = dict
 
@@ -114,12 +123,23 @@ def init_mlp(cfg: ArchConfig, gen: torch.Generator, n: Optional[int], dtype,
 
 
 def apply_mlp(x: torch.Tensor, p: Params, cfg: ArchConfig) -> torch.Tensor:
+    """SwiGLU or GELU MLP.  With d_ff split over 'model' (the reference's
+    ``ff`` rule; ``w_in``/``w_gate`` placed (fsdp, model), ``w_out``
+    (model, fsdp)) the weights are this process's columns and rows: the
+    activation stays local and the out-projection's partial sums are
+    reduced over 'model'."""
     h = x @ p["w_in"]
     if cfg.mlp_act == "silu":
         h = F.silu(x @ p["w_gate"]) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    return h @ p["w_out"]
+    return reduce_over(h @ p["w_out"], tp_split("ff", cfg.d_ff))
+
+
+def reduce_over(y: torch.Tensor, sp: Optional[Split]) -> torch.Tensor:
+    """A row-parallel product's partial sums ``y`` added over ``sp``'s
+    processes (``y`` itself when nothing is split)."""
+    return y if sp is None else col.all_reduce(y, sp.mesh, sp.axes)
 
 
 # --------------------------------------------------------------------------
@@ -130,8 +150,25 @@ def init_embed(cfg: ArchConfig, gen: torch.Generator, dtype, device) -> Params:
                                  cfg.d_model ** -0.5, dtype, device)}
 
 
-def embed_tokens(tokens: torch.Tensor, p: Params) -> torch.Tensor:
-    return F.embedding(tokens, p["table"])
+def embed_tokens(tokens: torch.Tensor, p: Params,
+                 sp: Optional[Split] = None) -> torch.Tensor:
+    """Rows of ``p["table"]``.  With the vocabulary split (``sp``) the
+    table holds this process's rows: a token outside them looks up zeros,
+    and the sum over 'model' is every token's row."""
+    if sp is None:
+        return F.embedding(tokens, p["table"])
+    local, mine = _local_ids(tokens, p["table"].shape[0], sp)
+    rows = F.embedding(local, p["table"])
+    return col.all_reduce(torch.where(mine[..., None], rows, 0.0), sp.mesh,
+                          sp.axes)
+
+
+def _local_ids(ids: torch.Tensor, v_local: int, sp: Split):
+    """(ids as rows of this process's block of ``v_local`` vocabulary
+    entries, 0 outside it; whether each id lies in the block)."""
+    local = ids.long() - sp.index * v_local
+    mine = (local >= 0) & (local < v_local)
+    return torch.where(mine, local, 0), mine
 
 
 def unembed(h: torch.Tensor, params: Params, cfg: ArchConfig) -> torch.Tensor:
@@ -140,17 +177,31 @@ def unembed(h: torch.Tensor, params: Params, cfg: ArchConfig) -> torch.Tensor:
     return h @ params["lm_head"]["w"]
 
 
-def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Each position's negative log-likelihood of its label, in f32."""
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor,
+               sp: Optional[Split] = None) -> torch.Tensor:
+    """Each position's negative log-likelihood of its label, in f32.  With
+    the vocabulary split (``sp``) ``logits`` are this process's block: the
+    log-sums of the blocks combine by one more ``logsumexp`` (at one block
+    its value, bit for bit), and the label's logit is read where it lies
+    and summed over 'model'."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    if sp is None:
+        gold = logits.gather(-1, labels[..., None].long())[..., 0]
+        return logz - gold
+    logz = torch.logsumexp(col.all_gather(logz[None], 0, sp.mesh, sp.axes),
+                           dim=0)
+    local, mine = _local_ids(labels, logits.shape[-1], sp)
+    gold = logits.gather(-1, local[..., None])[..., 0]
+    gold = col.all_reduce(torch.where(mine, gold, 0.0), sp.mesh, sp.axes)
     return logz - gold
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy, computed in f32."""
-    return torch.mean(_token_nll(logits, labels))
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  sp: Optional[Split] = None) -> torch.Tensor:
+    """Mean token cross-entropy, computed in f32 (``sp``: see
+    ``_token_nll``)."""
+    return torch.mean(_token_nll(logits, labels, sp))
 
 
 # At training scale the full logits tensor (B*S, V) can reach hundreds of
@@ -161,25 +212,28 @@ CE_SEQ_CHUNK = 256
 
 
 def _chunk_ce_sum(h: torch.Tensor, labels: torch.Tensor,
-                  unembed_fn: Callable) -> torch.Tensor:
-    return torch.sum(_token_nll(unembed_fn(h), labels))
+                  unembed_fn: Callable, sp: Optional[Split]) -> torch.Tensor:
+    return torch.sum(_token_nll(unembed_fn(h), labels, sp))
 
 
 def chunked_unembed_cross_entropy(h: torch.Tensor, labels: torch.Tensor,
                                   unembed_fn: Callable,
+                                  sp: Optional[Split] = None,
                                   seq_chunk: int = CE_SEQ_CHUNK
                                   ) -> torch.Tensor:
     """Mean CE of ``unembed_fn(h_chunk)`` without materialising the full
     logits.  h: (B,S,D); labels: (B,S).  Each chunk runs under a
     non-reentrant ``checkpoint`` (the reference's ``jax.checkpoint`` per
     scan step), so its logits are recomputed in the backward pass and
-    never saved; the per-chunk sums add up in f32 in chunk order."""
+    never saved; the per-chunk sums add up in f32 in chunk order.  ``sp``
+    splits the vocabulary (see ``_token_nll``); it is passed, not read
+    from the context, since the recompute may run on another thread."""
     b, s, _ = h.shape
     if s % seq_chunk != 0:
         seq_chunk = s  # fall back (small inputs)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, seq_chunk):
         tot = tot + checkpoint(_chunk_ce_sum, h[:, i:i + seq_chunk],
-                               labels[:, i:i + seq_chunk], unembed_fn,
+                               labels[:, i:i + seq_chunk], unembed_fn, sp,
                                use_reentrant=False, preserve_rng_state=False)
     return tot / (b * s)

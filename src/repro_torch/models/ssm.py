@@ -16,7 +16,10 @@ Mamba's discretisation) is computed for the whole sequence or chunk
 before the loop, elementwise as the reference computes it per step.
 Every state leaf is f32 whatever the model dtype, and the xLSTM
 stabilisers ``m`` start at -1e30.  The reference's ``hint`` sharding
-annotations do nothing on one device and are dropped.
+annotations do nothing on one device; in the sharded train step's context
+Mamba computes its block of the inner channels where the reference's
+``inner`` rule splits them over 'model' (``mamba_prefill``), and the
+xLSTM mixers compute whole, as the reference's DP-only recurrence does.
 
 Rounding follows the reference op by op in bf16, where its prefill and
 decode differ on purpose: Mamba's prefill casts the x_proj output to f32
@@ -35,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.layers import normal_leaf, stacked
+from repro_torch.distributed.context import tp_split
+from repro_torch.models.layers import normal_leaf, reduce_over, stacked
 
 Params = dict
 
@@ -121,10 +125,26 @@ def mamba_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
     """x: (B,S,D).  The in-projection, causal conv, gate projections,
     selective scan, gating and out-projection run one chunk at a time,
     carrying (ssm state, conv tail); the tail holds the last d_conv - 1
-    pre-conv inputs in x's dtype."""
+    pre-conv inputs in x's dtype.
+
+    With the inner channels split over 'model' every per-channel leaf
+    (``conv_w``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D``) holds this
+    process's channels, and so do the conv, the scan and the states;
+    ``x_proj`` and ``w_out`` hold its rows, their partial sums reduced
+    over 'model' (``x_proj``'s before dt, B and C).  ``w_in`` holds u and
+    z side by side in one leaf, so a block of its columns would not be
+    one channel block of each: the step hands it over whole, and the
+    process takes its channels of u and of z."""
     b, s_len, _ = x.shape
     di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
     dtr = _dt_rank(cfg)
+    w_in = p["w_in"]
+    # reference ssm.py:104-105: the carries hinted "batch", "inner"
+    inner = tp_split("inner", di)
+    if inner is not None:
+        lo, di = inner.block(di)
+        z0 = cfg.mamba_d_inner + lo
+        w_in = torch.cat([w_in[:, lo:lo + di], w_in[:, z0:z0 + di]], dim=1)
     a = -torch.exp(p["A_log"])                               # (Di, ds)
     dt_proj = p["dt_proj"].float()
     dt_bias = p["dt_bias"].float()
@@ -134,7 +154,7 @@ def mamba_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
     tail = torch.zeros((dc - 1, b, di), dtype=x.dtype, device=x.device)
     outs = []
     for x_chunk in x.transpose(0, 1).split(chunk):           # (chunk,B,D)
-        u_pre, z = _mm(x_chunk, p["w_in"]).chunk(2, dim=-1)  # (chunk,B,Di)
+        u_pre, z = _mm(x_chunk, w_in).chunk(2, dim=-1)       # (chunk,B,Di)
         # causal depthwise conv across the chunk boundary via the tail,
         # oldest tap first, summed in x's dtype (never F.conv1d: cuDNN
         # may round f32 convolutions to TF32)
@@ -142,7 +162,7 @@ def mamba_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
         u = sum(u_ext[i:i + chunk] * p["conv_w"][i] for i in range(dc))
         u = F.silu(u)
         tail = u_ext[chunk:]
-        proj = _mm(u, p["x_proj"]).float()
+        proj = reduce_over(_mm(u, p["x_proj"]), inner).float()
         dt = F.softplus(_mm(proj[..., :dtr], dt_proj) + dt_bias)
         uf = u.float()
         # the step's decay and input, for every step of the chunk
@@ -155,7 +175,8 @@ def mamba_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
         y = torch.einsum("tbis,tbs->tbi", torch.stack(states),
                          proj[..., dtr + ds:]) + uf * p["D"]
         outs.append(_mm(y.to(x.dtype) * F.silu(z), p["w_out"]))
-    out = torch.cat(outs).transpose(0, 1)
+    # reference ssm.py:145: hint(out, "batch", None, None)
+    out = reduce_over(torch.cat(outs), inner).transpose(0, 1)
     return out, {"ssm": s, "conv": tail.transpose(0, 1)}
 
 

@@ -31,7 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs import ArchConfig
-from repro_torch.distributed.context import current, use_ctx
+from repro_torch.distributed.context import current, tp_split, use_ctx
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -180,11 +180,14 @@ def _embed_inputs(params: Params, cfg: ArchConfig,
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(h, img_h): token embeddings, or ``frames`` cast to the weights'
     dtype; and for image inputs ``img_embeds @ img_proj`` computed in f32
-    and rounded once, as JAX promotes f32 inputs against bf16 weights."""
+    and rounded once, as JAX promotes f32 inputs against bf16 weights.
+    In the sharded train step the table may hold this process's block of
+    the vocabulary (``embed_tokens``)."""
     if cfg.embedding_inputs:
         h = batch["frames"].to(params["lm_head"]["w"].dtype)
     else:
-        h = embed_tokens(batch["tokens"], params["embed"])
+        h = embed_tokens(batch["tokens"], params["embed"],
+                         tp_split("vocab", cfg.vocab_size))
     img_h = None
     if cfg.img_tokens:
         img_h = (batch["img_embeds"].float()
@@ -263,11 +266,16 @@ def train_loss(params: Params, batch: Dict[str, torch.Tensor],
     load-balance loss: (loss, {"ce", "moe_aux"}).  ``batch`` holds
     ``labels`` (B,S) and ``tokens`` (B,S), or ``frames`` (B,S,D) for the
     encoder-only model (scored through ``lm_head``), and ``img_embeds``
-    for the VLM.  Above ``CE_CHUNK_THRESHOLD`` logits the unembed and CE
-    run in checkpointed sequence chunks.
+    for the VLM.  Above ``CE_CHUNK_THRESHOLD`` logits (counted over the
+    whole vocabulary, split or not) the unembed and CE run in
+    checkpointed sequence chunks.  Where the sharded step splits the
+    vocabulary over 'model' the table or ``lm_head`` holds this process's
+    block of it, the logits are that block and the CE combines the
+    blocks (``layers._token_nll``).
 
     ``gather(tree, path)`` (the sharded train step's) makes a subtree of
-    local parameter shards whole just before its use: the top-level leaves
+    local parameter shards whole (but for the 'model' shards of the layers
+    the step splits) just before its use: the top-level leaves
     once (path ``""``), each period's slot leaves inside the period's remat
     region (path ``"slots"``), so one period at a time is whole."""
     if gather is not None:
@@ -281,10 +289,12 @@ def train_loss(params: Params, batch: Dict[str, torch.Tensor],
     else:
         unembed_fn = lambda hh: unembed(hh, params, cfg)
     b, s, _ = h.shape
+    vocab = tp_split("vocab", cfg.vocab_size)
     if b * s * cfg.vocab_size > CE_CHUNK_THRESHOLD:
-        ce = chunked_unembed_cross_entropy(h, batch["labels"], unembed_fn)
+        ce = chunked_unembed_cross_entropy(h, batch["labels"], unembed_fn,
+                                           vocab)
     else:
-        ce = cross_entropy(unembed_fn(h), batch["labels"])
+        ce = cross_entropy(unembed_fn(h), batch["labels"], vocab)
     return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 

@@ -22,11 +22,13 @@ live activation memory is one microbatch deep regardless of global batch.
 
 Under a mesh the parameters and moments are DTensors (the launcher places
 them per ``distributed.sharding``) and the step computes on their local
-shards in FSDP's order (``_sharded_grad``): the same loss and gradients,
-the mean over the whole batch.  Where GSPMD would also split the dense
-layers' products over 'model', here the 'model' processes take other
-rows of the batch instead (ROADMAP §3).  On one process every collective
-still runs, and the numbers are the meshless step's bit for bit.
+shards (``_sharded_grad``): the same loss and gradients, the mean over
+the whole batch.  A microbatch's rows split over the fsdp axes, as the
+reference's ``batch`` rule says; the 'model' processes hold the same rows
+and split the dense layers as the reference's rules do (heads, d_ff, the
+vocabulary, Mamba's inner channels), MoE layers over experts.  On one
+process every collective still runs, and the numbers are the meshless
+step's bit for bit.
 """
 from __future__ import annotations
 
@@ -35,12 +37,12 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs import ArchConfig
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.context import Mesh, current, use_rules
+from repro_torch.distributed.context import Mesh, ShardCtx, current, use_ctx
 from repro_torch.models import transformer
 from repro_torch.models.transformer import tree_leaves, tree_map, tree_unflatten
 from repro_torch.params import resolve_device
@@ -129,47 +131,64 @@ def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
 
 def _row_axes(mesh, rows: int) -> Tuple[str, ...]:
     """The mesh axes a microbatch's ``rows`` are split over: the fsdp axes
-    where they divide the rows (``batch_specs``' rule), then 'model' where
-    the rows still divide; the processes of the other axes hold the same
-    rows."""
+    where they divide the rows (``batch_specs``' rule), else none; the
+    processes of the other axes ('model') hold the same rows."""
     fsdp = shd.axes_in(mesh, shd.FSDP_AXES)
-    axes = fsdp if fsdp and rows % shd.axis_size(mesh, fsdp) == 0 else ()
-    n_tp = shd.axis_size(mesh, shd.TP) if shd.TP in mesh.axis_names else 0
-    if n_tp and rows % (shd.axis_size(mesh, axes) * n_tp) == 0:
-        axes += (shd.TP,)
-    return axes
+    return fsdp if fsdp and rows % shd.axis_size(mesh, fsdp) == 0 else ()
 
 
-def _gatherer(cfg: ArchConfig, place, dm) -> Callable:
+# the logical name the rules split each kind of leaf over, for the leaves
+# the model computes on as their 'model' shards (``context.tp_split``):
+# the top-level subtrees, then a slot's mixer and ffn by kind.  Mamba's
+# ``w_in`` holds u and z side by side and reaches ``mamba_prefill`` whole;
+# the xLSTM mixers compute whole, as the reference's DP-only recurrence
+_TP_LEAVES = {"embed": "vocab", "lm_head": "vocab", "attn": "heads",
+              "cross_attn": "heads", "mlp": "ff", "mamba": "inner"}
+
+
+def _gatherer(cfg: ArchConfig, place, ctx: ShardCtx) -> Callable:
     """``train_loss``'s ``gather`` for local shards placed as ``place``:
-    each leaf made whole by a differentiable all-gather over the mesh dims
-    that shard it, except an MoE feed-forward's leaves, which stay
-    DTensors (their shards) for ``moe.apply_moe``'s expert-parallel
-    paths.  A period's leaves are placed as their stacked leaf, one
-    dimension down (the period axis is never sharded)."""
-    moe_slots = {f"slot{i}" for i, (_, ffn) in enumerate(cfg.block_pattern)
-                 if ffn == "moe"}
+    each leaf made whole by a differentiable all-gather over the mesh
+    dims that shard it, except over 'model' for a leaf of
+    ``_TP_LEAVES`` whose logical name ``ctx``'s rules split over 'model'
+    (the model computes on that shard), and an MoE feed-forward's leaves,
+    which stay DTensors (their shards) for ``moe.apply_moe``'s
+    expert-parallel paths.  A period's leaves are placed as their stacked
+    leaf, one dimension down (the period axis is never sharded)."""
+    dm = ctx.mesh.device_mesh
+    names = list(dm.mesh_dim_names)
+    tp = names.index(shd.TP) if shd.TP in names else None
 
     def per_period(pl):
         if any(p.is_shard(0) for p in pl):
             raise ValueError(f"a stacked leaf is sharded over periods: {pl}")
         return [Shard(p.dim - 1) if p.is_shard() else p for p in pl]
 
+    def whole(x, pl, kind, leaf):
+        if (tp is not None and ctx.splits(_TP_LEAVES.get(kind, ""))
+                and (kind, leaf) != ("mamba", "w_in")):
+            pl = [Replicate() if i == tp else p for i, p in enumerate(pl)]
+        return col.make_whole(x, pl, dm)
+
     def gather(tree, path):
         if path == "":
-            return shd.map2(lambda x, pl: col.make_whole(x, pl, dm), tree,
-                            {k: place[k] for k in tree})
+            return {k: {leaf: whole(x, place[k][leaf], k, leaf)
+                        for leaf, x in sub.items()} for k, sub in tree.items()}
         out = {}
         for slot, sub in tree.items():
+            mixer, ffn = cfg.block_pattern[int(slot[len("slot"):])]
             out[slot] = {}
             for key, leaves in sub.items():
-                if slot in moe_slots and key == "ffn":
-                    fn = (lambda x, pl: DTensor.from_local(
-                        x, dm, per_period(pl), run_check=False))
+                kind = {"mixer": mixer, "ffn": ffn}.get(key, key)
+                pl = place["slots"][slot][key]
+                if kind == "moe":
+                    out[slot][key] = {leaf: DTensor.from_local(
+                        x, dm, per_period(pl[leaf]), run_check=False)
+                        for leaf, x in leaves.items()}
                 else:
-                    fn = (lambda x, pl: col.make_whole(x, per_period(pl), dm))
-                out[slot][key] = shd.map2(fn, leaves,
-                                          place["slots"][slot][key])
+                    out[slot][key] = {
+                        leaf: whole(x, per_period(pl[leaf]), kind, leaf)
+                        for leaf, x in leaves.items()}
         return out
 
     return gather
@@ -178,16 +197,29 @@ def _gatherer(cfg: ArchConfig, place, dm) -> Callable:
 def _sharded_grad(params, batch, cfg: ArchConfig, tcfg: TrainConfig,
                   accumulate: Callable):
     """The step's gradient on DTensor parameters, computed on local shards
-    in FSDP's order (ZeRO-3): each period's leaves made whole just in time
-    by a differentiable all-gather (inside the period's remat region, so
-    one period at a time, again under recompute), each microbatch's rows
-    split over the processes (``_row_axes``), MoE layers through
-    ``moe_sharded``.  Each leaf's gradient lands on its shards: the
-    gathers' backward reduce-scatters (and the MoE's all_to_all) sum over
-    the processes that shard it, an all-reduce over the mesh dims that
-    replicate it, then a division by the process count, so it is the mean
-    over the whole batch, as the single-process step's.  Runs under the
-    current sharding context, or one on the parameters' mesh."""
+    (ZeRO-3 over the fsdp axes, tensor parallel over 'model'): each
+    period's leaves gathered over the fsdp axes just in time by a
+    differentiable all-gather (inside the period's remat region, so one
+    period at a time, again under recompute), the leaves the rules split
+    over 'model' left as their 'model' shards for the model's
+    column- and row-parallel products (``context.tp_split``), the others
+    made whole; each microbatch's rows split over the fsdp axes
+    (``_row_axes``) and the same on the 'model' processes; MoE layers
+    through ``moe_sharded``.
+
+    Gradients: each process differentiates its own loss (the 'model'
+    processes of a row block hold equal losses), and every collective's
+    backward is its adjoint, so each local leaf gets the gradient of the
+    sum of all the processes' losses: the gathers' reduce-scatters (and
+    the MoE's all_to_all) sum over the processes that shard it, an
+    all-reduce over the mesh dims that replicate it adds the copies'
+    pieces (a replicated leaf's gradient is partial on each 'model'
+    process), then a division by the process count makes it the mean over
+    the whole batch, as the single-process step's.  No identity-forward,
+    all-reduce-backward operator is needed before a column-parallel
+    product: the partial gradients of a replicated activation stay on
+    their processes and meet where its leaves' copies are added.  Runs
+    under the current sharding context, or one on the parameters' mesh."""
     ctx = current()
     dm = tree_leaves(params)[0].device_mesh
     mesh = ctx.mesh if ctx is not None else Mesh(dm)
@@ -204,9 +236,10 @@ def _sharded_grad(params, batch, cfg: ArchConfig, tcfg: TrainConfig,
     # this process's rows of each microbatch; microbatches stay contiguous
     mine = {k: x.reshape(ga, rows, *x.shape[1:])[:, r * per:(r + 1) * per]
             .reshape(ga * per, *x.shape[1:]) for k, x in batch.items()}
-    with use_rules(mesh, rules, row_axes):
+    step_ctx = ShardCtx(mesh, rules, row_axes, tp=True)
+    with use_ctx(step_ctx):
         loss, parts, grads = accumulate(local, mine,
-                                        _gatherer(cfg, place, dm))
+                                        _gatherer(cfg, place, step_ctx))
 
     n = mesh.devices.size
     out = []

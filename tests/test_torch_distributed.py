@@ -6,16 +6,18 @@ virtual CPU devices).
 One subprocess spawns eight processes on a (2, 4) ("data", "model") mesh
 (``file://`` rendezvous under the test's temporary directory, so workers
 of a parallel test run never share a port) and runs every mesh job once:
-sharded train steps of tiny olmo-1b and of tiny qwen3-moe-30b-a3b (drop
--free capacity, as the reference's test) from the JAX package's weights,
-the MoE through each of ``apply_moe``'s three sharded branches, a reshard
+sharded train steps of tiny archs (drop-free capacity, as the reference's
+test) from the JAX package's weights, each microbatch's rows split over
+'data' and the same on the 4 'model' processes, which split the dense
+layers (heads or query rows, d_ff, the vocabulary, Mamba's channels) and
+the MoE through each of ``apply_moe``'s three sharded branches; a reshard
 (2, 4) → (1, 2), the three MoE dispatch paths with gradients, and
 ``hint``'s divisibility guard.  Beside it a second subprocess runs the
 JAX package's own sharded step on eight virtual CPU devices, as
 tests/test_distributed_integration.py does, for the steps whose MoE
 load-balance loss is computed per shard.  The tests below read both.
-The launcher runs under ``torch.distributed.run`` on two processes and
-resumes on one; and on one process its mesh path is held bit for bit to
+The launcher runs under ``torch.distributed.run`` on two processes (a
+(1, 2) mesh, tensor parallel) and resumes on one; and on one process its mesh path is held bit for bit to
 the meshless ``make_train_step``.
 """
 import dataclasses
@@ -31,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro import configs as jconfigs
 from repro.training import TrainConfig as JTrainConfig
@@ -47,22 +50,33 @@ from repro_torch.training.train_step import make_grad_fn
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ("olmo-1b", "qwen3-moe-30b-a3b")
 # the tiny configs the steps run (drop-free capacity): name -> (arch,
-# overrides); six experts do not divide over the 4 'model' processes
+# overrides); six experts do not divide over the 4 'model' processes, nor
+# do six heads (qwen1.5-4b: sequence-parallel attention)
 CFGS = {"olmo-1b": ("olmo-1b", {}),
         "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", {}),
-        "qwen3-moe-6-experts": ("qwen3-moe-30b-a3b", {"n_experts": 6})}
+        "qwen3-moe-6-experts": ("qwen3-moe-30b-a3b", {"n_experts": 6}),
+        "qwen3-8b": ("qwen3-8b", {}),
+        "qwen1.5-4b-6-heads": ("qwen1.5-4b", {"n_heads": 6,
+                                              "n_kv_heads": 6}),
+        "llama-3.2-vision-11b": ("llama-3.2-vision-11b", {}),
+        "hubert-xlarge": ("hubert-xlarge", {}),
+        "jamba-1.5-large-398b": ("jamba-1.5-large-398b", {})}
 # the sharded steps: (name, config, aux_weight, grad_accum, seq_len, the
 # MoE branch of apply_moe they must take).  "a2a": moe_ffn_sharded,
 # whose load-balance loss is per shard (each process's tokens), so not
 # the single process's, and is held to the JAX package's sharded step;
-# the MoE also without that loss.  In 4 microbatches of 2 rows each row
-# is on one 'data' process and the same on its 4 'model' processes,
-# which split its tokens for the all_to_all.  "psum": 8 tokens a
-# microbatch, fewer than one per local expert, so moe_ffn_psum with the
-# rows split over 'data'.  "whole": the experts do not divide, so every
-# token through moe_ffn on whole weights.
+# the MoE also without that loss.  A microbatch's rows split over 'data'
+# and are the same on the 4 'model' processes, which split its tokens for
+# the all_to_all.  "psum": 8 tokens a microbatch, fewer than one per
+# local expert, so moe_ffn_psum.  "whole": the experts do not divide, so
+# every token through moe_ffn on whole weights.  The tensor-parallel
+# steps after them: qwen3-8b's 2 KV heads do not divide 4 (replicated KV
+# weights, each query head reading its KV head) under qk-norm;
+# qwen1.5-4b's 6 heads do not, so its attention splits the query rows
+# (QKV bias); the VLM's cross-attention; hubert's frames, lm_head, GELU
+# and non-causal attention; jamba's Mamba channels beside its attention
+# and its MoE (all_to_all, without the per-shard loss).
 STEPS = (("olmo-1b", "olmo-1b", 0.01, 1, 16, None),
          ("qwen3-moe-30b-a3b", "qwen3-moe-30b-a3b", 0.01, 1, 16, "a2a"),
          ("qwen3-moe-30b-a3b-accum4", "qwen3-moe-30b-a3b", 0.01, 4, 16,
@@ -73,7 +87,16 @@ STEPS = (("olmo-1b", "olmo-1b", 0.01, 1, 16, None),
          ("qwen3-moe-30b-a3b-psum", "qwen3-moe-30b-a3b", 0.01, 4, 4, "psum"),
          ("qwen3-moe-6-experts", "qwen3-moe-6-experts", 0.01, 1, 16,
           "whole"),
-         ("olmo-1b-accum4", "olmo-1b", 0.01, 4, 16, None))
+         ("olmo-1b-accum4", "olmo-1b", 0.01, 4, 16, None),
+         ("qwen3-8b", "qwen3-8b", 0.01, 1, 16, None),
+         ("qwen1.5-4b-6-heads", "qwen1.5-4b-6-heads", 0.01, 1, 16, None),
+         ("llama-3.2-vision-11b", "llama-3.2-vision-11b", 0.01, 1, 16, None),
+         ("hubert-xlarge", "hubert-xlarge", 0.01, 1, 16, None),
+         ("jamba-1.5-large-398b", "jamba-1.5-large-398b", 0.0, 1, 16, "a2a"))
+# the steps also held to the JAX package's single-device step
+JAX_STEPS = ("olmo-1b", "qwen3-moe-30b-a3b", "olmo-1b-accum4", "qwen3-8b",
+             "qwen1.5-4b-6-heads", "llama-3.2-vision-11b", "hubert-xlarge",
+             "jamba-1.5-large-398b")
 EP_AUX = tuple(s for s in STEPS if s[2] and s[5] == "a2a")
 G_ATOL, G_RTOL = 1e-5, 1e-4   # tests/test_torch_training.py's
 TIMEOUT_S = 300
@@ -101,7 +124,8 @@ WORKER = textwrap.dedent('''
         from repro_torch.distributed import elastic, sharding as shd
         from repro_torch.distributed.context import hint, use_rules
         from repro_torch.launch.mesh import make_mesh
-        from repro_torch.models import moe, moe_sharded
+        from torch.utils.flop_counter import FlopCounterMode
+        from repro_torch.models import moe, moe_sharded, transformer
         from repro_torch.models.transformer import tree_leaves
         from repro_torch.training import (DataConfig, TokenDataset,
                                           TrainConfig, checkpoint,
@@ -124,6 +148,19 @@ WORKER = textwrap.dedent('''
         counted(moe_sharded, "moe_ffn_psum", "psum")
         counted(moe, "moe_ffn", "whole")
 
+        # the shapes of the leaves self-attention (wq) and the MLP (w_in)
+        # compute on
+        used = {}
+
+        def recording(fn, leaf):
+            def g(x, p, *a):
+                used.setdefault(leaf, set()).add(tuple(p[leaf].shape))
+                return fn(x, p, *a)
+            return g
+        init, pre, dec, fwd = transformer._MIXERS["attn"]
+        transformer._MIXERS["attn"] = (init, pre, dec, recording(fwd, "wq"))
+        transformer.apply_mlp = recording(transformer.apply_mlp, "w_in")
+
         # one sharded train step from the test's weights
         for name, key, aux_weight, grad_accum, seq, _ in STEPS:
             arch, over = CFGS[key]
@@ -140,13 +177,16 @@ WORKER = textwrap.dedent('''
                                  cfg).batch_at(0)
             rules = shd.logical_rules(cfg, Shape("t", "train", seq, 8), mesh)
             paths.clear()
-            with use_rules(mesh, rules):
+            used.clear()
+            with use_rules(mesh, rules), FlopCounterMode(display=False) as fc:
                 p, o, m = make_train_step(cfg, tcfg)(
                     state["params"], state["opt"], batch)
             checkpoint.save(f"{tmp}/{name}_step", 1, {"params": p, "opt": o})
             out[name] = {"loss": float(m["loss"]),
                          "grad_norm": float(m["grad_norm"]),
                          "paths": dict(paths),
+                         "flops": fc.get_total_flops(),
+                         "shapes": {k: sorted(v) for k, v in used.items()},
                          "dtensors": all(isinstance(x, DTensor) for x in
                                          tree_leaves({"p": p, "o": o["m"]}))}
 
@@ -369,10 +409,10 @@ def test_sharded_train_step_matches_single_process(mesh_run, name, key,
                                                    aux_weight, grad_accum,
                                                    seq, path):
     """One step on the (2, 4) mesh of eight processes (parameters and
-    moments DTensors, rows split over the processes, the MoE through the
-    branch of ``apply_moe`` the step names) equals the port's
-    single-process step from the same weights: parameters and moments
-    within 1e-6.  With the all_to_all path's load-balance loss on, its EP
+    moments DTensors, rows split over 'data', dense layers over 'model',
+    the MoE through the branch of ``apply_moe`` the step names) equals
+    the port's single-process step from the same weights: parameters and
+    moments within 1e-6.  With the all_to_all path's load-balance loss on, its EP
     value (per shard, as the reference's) moves every gradient and so the
     moments: the loss agrees within the reference's 5e-2, and the
     parameters within 1e-6 where the single process's gradient is large
@@ -454,26 +494,52 @@ def test_sharded_step_with_ep_aux_matches_jax_sharded(mesh_run, name, key,
             assert float(np.abs(a - b).max()) < 1e-6, i
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_sharded_train_step_matches_jax(mesh_run, arch):
+@pytest.mark.parametrize("name,key,aux_weight,grad_accum,seq,path",
+                         [s for s in STEPS if s[0] in JAX_STEPS],
+                         ids=[s[0] for s in STEPS if s[0] in JAX_STEPS])
+def test_sharded_train_step_matches_jax(mesh_run, name, key, aux_weight,
+                                        grad_accum, seq, path):
     """The same step against the JAX package's single-device step, within
     the reference's own bounds (tests/test_distributed_integration.py:
     loss 5e-2, parameters 5e-3)."""
     tmp, res, weights = mesh_run
-    jcfg, cfg = _cfgs(arch)
-    jtcfg = JTrainConfig(remat="none")
+    jcfg, cfg = _cfgs(key)
+    jtcfg = JTrainConfig(remat="none", aux_weight=aux_weight,
+                         grad_accum=grad_accum)
     _, jopt = j_init_train_state(jax.random.PRNGKey(0), jcfg, jtcfg)
-    batch = TokenDataset(DataConfig(seq_len=16, global_batch=8),
+    batch = TokenDataset(DataConfig(seq_len=seq, global_batch=8),
                          cfg).batch_at(0)
-    params = jax.tree.map(jnp.asarray, weights[arch])
+    params = jax.tree.map(jnp.asarray, weights[key])
     jp, _, jm = jax.jit(j_make_train_step(jcfg, jtcfg))(
         params, jopt, jax.tree.map(jnp.asarray, batch))
-    assert abs(res[arch]["loss"] - float(jm["loss"])) < 5e-2
-    got = tree_leaves(_sharded_step(tmp, arch)["params"])
+    assert abs(res[name]["loss"] - float(jm["loss"])) < 5e-2
+    got = tree_leaves(_sharded_step(tmp, name)["params"])
     d = max(float(np.abs(a.numpy().astype(np.float64) -
                          np.asarray(b, np.float64)).max())
             for a, b in zip(got, jax.tree.leaves(jp)))
     assert d < 5e-3, d
+
+
+def test_dense_layers_split_over_model(mesh_run):
+    """Each 'model' process computes its shard of the dense layers: in the
+    olmo-1b step self-attention and the MLP compute on (D, H/4, Dh) and
+    (D, F/4) leaves, and in the olmo-1b-accum4 step (a microbatch's 2
+    rows, one on each 'data' process and the same on its 4 'model'
+    processes) a process counts about 1/8 of the single-process step's
+    FLOPs, where whole leaves on those rows would count 1/2."""
+    _, res, weights = mesh_run
+    _, cfg = _cfgs("olmo-1b")
+    d, h, dh, f = cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff
+    assert res["olmo-1b"]["shapes"] == {"wq": [[d, h // 4, dh]],
+                                        "w_in": [[d, f // 4]]}
+    tcfg = TrainConfig(remat="none", grad_accum=4)
+    p = params_from_numpy(weights["olmo-1b"], "cpu")
+    batch = TokenDataset(DataConfig(seq_len=16, global_batch=8),
+                         cfg).batch_at(0)
+    with FlopCounterMode(display=False) as fc:
+        make_train_step(cfg, tcfg)(p, init_opt_state(p, tcfg.opt), batch)
+    ratio = res["olmo-1b-accum4"]["flops"] / fc.get_total_flops()
+    assert abs(ratio - 1 / 8) < 0.01, ratio
 
 
 def test_elastic_reshard_between_meshes(mesh_run):
@@ -535,7 +601,8 @@ def _launch(args, tmp_path, procs=None):
 
 def test_launcher_resumes_elastically_on_fewer_processes(tmp_path):
     """Three steps under ``torch.distributed.run`` on two processes ((1, 2)
-    mesh: the rows over 'model'), checkpointed; the same checkpoint
+    mesh: the same rows on both, the dense layers split over 'model'),
+    checkpointed; the same checkpoint
     resumed on one process prints the reference's elastic line and
     finishes five steps within 1e-6 of an uninterrupted one-process
     run."""

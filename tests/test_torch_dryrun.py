@@ -37,17 +37,24 @@ MESHES = {"single": ShapeMesh((16, 16), ("data", "model")),
           "multi": ShapeMesh((2, 16, 16), ("pod", "data", "model"))}
 # the steps of tests/test_torch_distributed.py's eight-process job whose
 # collectives are counted: (name, arch, overrides, TrainConfig fields);
-# tiny olmo-1b, and tiny qwen3-moe through the all_to_all path
+# tiny olmo-1b, tiny qwen3-moe through the all_to_all path, and the
+# tensor-parallel paths of GQA with replicated KV weights (qwen3-8b),
+# sequence-parallel attention (six heads over 4) and Mamba's channels
+# beside an MoE (jamba)
 STEPS = (("olmo-1b", "olmo-1b", {}, {"remat": "none"}),
          ("qwen3-moe-30b-a3b", "qwen3-moe-30b-a3b", {}, {"remat": "none"}),
          ("olmo-1b-accum4", "olmo-1b", {}, {"remat": "none",
-                                            "grad_accum": 4}))
+                                            "grad_accum": 4}),
+         ("qwen3-8b", "qwen3-8b", {}, {"remat": "none"}),
+         ("qwen1.5-4b-6-heads", "qwen1.5-4b", {"n_heads": 6, "n_kv_heads": 6},
+          {"remat": "none"}),
+         ("jamba-1.5-large-398b", "jamba-1.5-large-398b", {},
+          {"remat": "none"}))
 STEP_SEQ, STEP_BATCH = 16, 8
-# fault 3.1's factor at the grad_accum 4 cell: a microbatch of 64 rows
-# divides over 'data' (16) but not over 256 processes, so each rank computes
-# 16 rows where at grad_accum 1 it computes one; the unembed's share can
-# only add its recompute under the chunked CE (one forward more in three)
-ACCUM4_FACTOR = (16.0, 16.0 * 4 / 3)
+# grad_accum 4 against 1 at the olmo-1b train_4k cell: a microbatch's rows
+# split over 'data' and its dense layers over 'model', so each rank
+# computes about the same FLOPs in four microbatches as in one
+ACCUM4_FACTOR = (0.9, 1.15)
 
 CELLS = textwrap.dedent('''
     import dataclasses, json, os, sys
@@ -335,17 +342,34 @@ def test_train_flops_match_the_analytic_count(cells):
                                        * shape.global_batch * shape.seq_len)
 
 
-def test_grad_accum_4_repeats_rows_over_model(cells):
-    """Fault 3.1 (ROADMAP §3): at the reference's own grad_accum 4 each
-    rank computes what 16 ranks compute at grad_accum 1, because the
-    sharded step splits a microbatch's 64 rows over 'data' only and the
-    16 'model' ranks take the same rows on whole leaves.  Dense tensor
-    parallelism over 'model' (ROADMAP item 14) is what brings this factor
-    to about 1.  Two layers keep the test short; widths are full."""
+def test_grad_accum_4_costs_what_grad_accum_1_costs(cells):
+    """At the reference's own grad_accum 4 each rank computes about what
+    it computes at grad_accum 1: a microbatch's 64 rows split over 'data'
+    (4 a rank) and the 16 'model' ranks split its dense layers, where the
+    port once had them repeat the same rows on whole leaves (a factor of
+    16).  Two layers keep the test short; widths are full."""
     ga1, ga4 = cells["olmo2_ga1"], cells["olmo2_ga4"]
     assert (ga1["grad_accum"], ga4["grad_accum"]) == (1, 4)
     factor = ga4["flops_per_device"] / ga1["flops_per_device"]
     assert ACCUM4_FACTOR[0] <= factor <= ACCUM4_FACTOR[1], factor
+
+
+@pytest.mark.parametrize("cell", ["olmo2_ga1", "olmo2_ga4"])
+def test_two_layer_train_flops_match_the_analytic_count(cells, cell):
+    """The two-layer full-width olmo-1b train_4k cell counts 0.9-1.1x the
+    reference's analytic FLOPs per device, at grad_accum 1 and 4.  The
+    analytic count is a prefill's four times over, whose unembedding
+    covers the last position only; a train step unembeds every position
+    (forward, the chunked CE's recompute, two products backward), which
+    at two layers is a third of the step, so it is added to the count:
+    four unembeddings of every position, less the prefill's one."""
+    r = cells[cell]
+    cfg, shape = configs.get_config("olmo-1b"), configs.SHAPES["train_4k"]
+    unembed = 2.0 * shape.global_batch * cfg.d_model * cfg.vocab_size
+    analytic = r["analytic_flops_per_device"] + 4 * unembed * (
+        shape.seq_len - 1) / r["n_chips"]
+    ratio = r["flops_per_device"] / analytic
+    assert 0.9 <= ratio <= 1.1, ratio
 
 
 @pytest.mark.parametrize("name", [s[0] for s in STEPS])
@@ -357,8 +381,9 @@ def test_fake_mesh_collectives_match_gloo(cells, gloo_counts, name):
     got = {k: [n, fake[f"coll_{k}"]]
            for k, n in fake["collective_counts"].items()}
     assert got == gloo_counts[name]
+    arch = dict((s[0], s[1]) for s in STEPS)[name]
     kinds = {"all-gather", "reduce-scatter", "all-reduce"} | (
-        {"all-to-all"} if "moe" in name else set())
+        {"all-to-all"} if configs.get_tiny_config(arch).is_moe else set())
     assert set(got) == kinds
     if len(fake["flops_by_label"]) < 25:
         assert sum(fake["flops_by_label"].values()) == fake["flops"]
