@@ -116,11 +116,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
     card, its default), and qwen3-8b x train_4k at 12 of its 36 layers,
     each one's result and wall; a train cell's FLOPs per device over the
     analytic count (olmo-1b's within 0.9-1.1, its dense layers split over
-    'model'), collective bytes by kind and peak.
+    'model'), collective bytes by kind and peak;
+15. sharded serving (``serve_sharded``; ``distributed/serve_step.py``):
+    (a) the kernels' new modes at serving shapes: the decode kernel at
+    qwen3-8b's shape in bf16 (Hq 32 over Hkv 8, and over 4: the group of
+    8) over a cache of 32768 positions split into 16 blocks of 2048 (a
+    decode_32k rank's block), each with its log-sum-exp at its local pos
+    (-1 past the token), merged by ``merge_partials``' combine and held
+    to the unsplit kernel and the plain version at pos 0, 2047, 2048,
+    20000 and 32767 (``merged_bf16_tolerance``), blocks past pos zero
+    and weightless, with device times (CUDA-graph replays) of the 16
+    launches and the merge against one launch; flash at S = T 2048,
+    causal, Hq 32 over Hkv 8, in bf16 (wgmma) and f32 (CUDA-core), as
+    four blocks of 512 query rows at their offsets against the whole
+    launch (bit for bit or not, said) and the plain version; (b)
+    full-width qwen3-8b in bf16 under the launcher's NCCL (1, 1) mesh:
+    ``sharded_prefill`` of a 2048-token prompt and 32
+    ``sharded_decode_step``s must equal the meshless ``prefill`` and
+    ``decode_step`` bit for bit (logits of every step, the last cache),
+    flash launched 36 times and decode 36 times a step, each writing its
+    log-sum-exp, with walls and peaks beside the meshless run's; (c) the
+    reference's serving cells olmo-1b x prefill_32k, qwen3-8b x
+    decode_32k and qwen3-moe-30b-a3b x decode_32k through the dry-run's
+    command line on fake tensors of the card (16x16 mesh, the kernels
+    through their fake implementations), each in a subprocess: each ok,
+    FLOPs per device over the analytic count (the first two within
+    0.9-1.3, and fitting 80 GB), collective bytes by kind, peak.
 
 Each serving phase also holds its profiled prefill's device time against
 CUDA events around the same prefill.  Then a ``{"kernels": [...]}`` line
-and, last, the device line.  Without a CUDA device, or without the
+(with flash's ``q_offset`` and decode's ``split_lse`` modes under
+``modes``) and, last, the device line.  Without a CUDA device, or without the
 repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -701,9 +727,13 @@ def _counters():
 
 def _launches():
     """Launches per kernel: ``wrapper/variant`` where a wrapper has two
-    kernels, whose counts must add up to the wrapper's own."""
+    kernels, whose counts must add up to the wrapper's own; and
+    ``wrapper:mode``, those of its launches in a mode (flash at a query
+    offset, decode writing its log-sum-exp)."""
     out = {}
     for name, mod in _counters().items():
+        out.update({f"{name}:{m}": n
+                    for m, n in getattr(mod, "mode_launches", {}).items()})
         by = getattr(mod, "variant_launches", None)
         if by is None:
             out[name] = mod.launches
@@ -718,8 +748,10 @@ def _launches():
 def _reset_launches():
     for mod in _counters().values():
         mod.launches = 0
-        for v in getattr(mod, "variant_launches", {}):
-            mod.variant_launches[v] = 0
+        for counts in (getattr(mod, "variant_launches", {}),
+                       getattr(mod, "mode_launches", {})):
+            for v in counts:
+                counts[v] = 0
     _counters()["decode_attention"].layout_copies = 0
 
 
@@ -2033,6 +2065,403 @@ def phase_dryrun(card: str):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 15: serve_sharded
+# --------------------------------------------------------------------------
+# decode_32k's cache and one rank's block of it on a 'model' axis of 16
+SPLIT_T, SPLIT_BLOCK = 32768, 2048
+SPLIT_POS = (0, 2047, 2048, 20000, 32767)
+SPLIT_TIMED_POS = 20000
+OFFSET_S, OFFSET_BLOCK = 2048, 512
+SHARDED_PROMPT, SHARDED_STEPS = 2048, 32
+# the reference's serving cells through the dry-run's command line on fake
+# tensors of the card (16x16 mesh); FLOPs per device over the analytic
+# count held to SERVE_FACTOR where the issue of whole leaves showed (16x)
+SERVE_CELLS = (("olmo-1b", "prefill_32k"), ("qwen3-8b", "decode_32k"),
+               ("qwen3-moe-30b-a3b", "decode_32k"))
+SERVE_FACTOR = (0.9, 1.3)
+SERVE_FACTOR_CELLS = ("olmo-1b|prefill_32k", "qwen3-8b|decode_32k")
+# the new modes' rows, for the kernels line
+MODE_ROWS = []
+
+
+def _split_decode(q, k, v, pos, block=SPLIT_BLOCK):
+    """The decode kernel over each block of ``block`` positions of the
+    cache, at its local pos (-1 where the block lies past ``pos``), with
+    its log-sum-exp: (outputs, lses) stacked over the blocks, as the
+    processes of a cache split over 'model' compute them."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    outs, lses = [], []
+    for r in range(k.shape[2] // block):
+        sl = slice(r * block, (r + 1) * block)
+        o, l = decode_attention(q, k[:, :, sl], v[:, :, sl],
+                                min(max(pos - r * block, -1), block - 1),
+                                return_lse=True)
+        outs.append(o)
+        lses.append(l)
+    return torch.stack(outs), torch.stack(lses)
+
+
+def split_decode_case(gen, hkv: int) -> dict:
+    """The decode kernel at qwen3-8b's shape (bf16, Hq 32, D 128; Hkv 8,
+    or 4 for the group of 8) over a T 32768 cache split into 16 blocks of
+    2048 (decode_32k's block on each of 16 'model' ranks), merged by
+    ``merge_partials``' combine, against the unsplit kernel and the plain
+    version at each pos of SPLIT_POS; blocks past pos must return zeros
+    and -1e30 and weigh nothing.  Device times (CUDA-graph replays) of
+    the 16 launches and the merge against one launch, at
+    SPLIT_TIMED_POS."""
+    from repro_torch.distributed.collectives import combine_partials
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.decode_attention.ref import (
+        NEG_INF, merged_bf16_tolerance)
+    F = torch.nn.functional
+    dtype, t = torch.bfloat16, SPLIT_T
+
+    def inputs():
+        return (torch.randn((B, HQ, D), generator=gen, device="cuda",
+                            dtype=dtype),
+                _model_layout(gen, B, t, hkv, D, dtype),
+                _model_layout(gen, B, t, hkv, D, dtype))
+    q, k, v = inputs()
+    checks = []
+    for pos in SPLIT_POS:
+        outs, lses = _split_decode(q, k, v, pos)
+        merged = combine_partials(outs, lses)
+        whole = decode_attention(q, k, v, pos)
+        ref = decode_attention_plain(*as_f32(q, k, v), pos)
+        tol = merged_bf16_tolerance(ref, outs, lses)
+        whole_tol = tolerance(ref, TOL[dtype])
+        live = [r for r in range(t // SPLIT_BLOCK) if pos >= r * SPLIT_BLOCK]
+        empty = [r for r in range(t // SPLIT_BLOCK) if r not in live]
+        empty_zero = all(bool((outs[r] == 0).all())
+                         and bool((lses[r] == NEG_INF).all()) for r in empty)
+        weightless = bool(torch.equal(
+            combine_partials(outs[live], lses[live]), merged))
+        ratio = over_tol(merged, ref, tol)
+        ratio_whole = over_tol(merged, whole, tol + whole_tol)
+        checks.append(dict(
+            pos=pos, live_blocks=len(live), max_abs_err=max_err(merged, ref),
+            err_over_tol=ratio, vs_whole_max_abs=max_err(merged, whole),
+            vs_whole_over_tol=ratio_whole,
+            whole_err_over_tol=over_tol(whole, ref, whole_tol),
+            empty_blocks_zero=empty_zero,
+            empty_blocks_weigh_nothing=weightless,
+            ok=ratio <= 1 and ratio_whole <= 1 and empty_zero and weightless))
+    pos = SPLIT_TIMED_POS
+    sets = [(q, k, v)] + [inputs() for _ in range(1)]
+
+    def split(q_, k_, v_):
+        return combine_partials(*_split_decode(q_, k_, v_, pos))
+
+    def library(q_, k_, v_):
+        return F.scaled_dot_product_attention(
+            q_[:, :, None], k_[:, :, :pos + 1], v_[:, :, :pos + 1],
+            enable_gqa=True)
+    live_bytes = 2 * B * hkv * (pos + 1) * D * k.element_size()
+    ops = 4 * B * HQ * D * (pos + 1)
+    t_ops = ops / PEAK_OPS[dtype]
+    t_bytes = (nbytes(q, q) + live_bytes) / HBM_BYTES_PER_S
+    return dict(
+        kernel="decode_attention", mode="split_lse", dtype="bfloat16", Hq=HQ,
+        Hkv=hkv, T=t, block=SPLIT_BLOCK, blocks=t // SPLIT_BLOCK,
+        tolerance="merged_bf16_tolerance (decode_attention/ref.py)",
+        checks=checks, max_abs_err=max(c["max_abs_err"] for c in checks),
+        ok=all(c["ok"] for c in checks), timed_pos=pos,
+        ms=time_ms(split, sets),
+        plain_ms=time_ms(lambda a, b_, c: decode_attention_plain(a, b_, c,
+                                                                 pos), sets),
+        library_ms=time_ms(library, sets),
+        device_ms=graph_ms(split, sets),
+        whole_device_ms=graph_ms(
+            lambda a, b_, c: decode_attention(a, b_, c, pos), sets),
+        library_device_ms=graph_ms(library, sets),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def offset_flash_case(gen, dtype) -> dict:
+    """Flash at S = T 2048, causal, Hq 32 over Hkv 8, as four blocks of
+    512 query rows at offsets 0-1536 (``q_offset``: the 'qseq' split of
+    prefill), concatenated, against the whole sequence's launch and the
+    plain version; whether the blocks equal the whole launch bit for
+    bit; times of the four launches against the one."""
+    from repro_torch.kernels.flash_attention import (bf16_tolerance,
+                                                     flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import kernel_variant
+    F = torch.nn.functional
+    s = OFFSET_S
+
+    def inputs():
+        return tuple(_model_layout(gen, B, s, h, D, dtype)
+                     for h in (HQ, HKV, HKV))
+    q, k, v = inputs()
+
+    def blocks(q_, k_, v_):
+        return torch.cat([flash_attention(q_[:, :, r:r + OFFSET_BLOCK], k_,
+                                          v_, True, r)
+                          for r in range(0, s, OFFSET_BLOCK)], dim=2)
+    got = blocks(q, k, v)
+    whole = flash_attention(q, k, v, True)
+    ref = flash_attention_plain(*as_f32(q, k, v), True)
+    variant = kernel_variant(dtype, D)
+    tol = (bf16_tolerance(q, k, v, True) if variant == "wgmma"
+           else tolerance(ref, TOL[dtype]))
+    ratio = over_tol(got, ref, tol)
+    bitwise = bool(torch.equal(got, whole))
+    sets = [(q, k, v)] + [inputs() for _ in range(
+        n_copies(nbytes(q, k, v)) - 1)]
+    ops = 4 * B * HQ * D * s * (s + 1) // 2
+    t_ops = ops / PEAK_OPS[dtype]
+    t_bytes = nbytes(q, k, v, q) / HBM_BYTES_PER_S
+    return dict(
+        kernel="flash_attention", mode="q_offset", variant=variant,
+        dtype=str(dtype).split(".")[1], D=D, Hq=HQ, Hkv=HKV, S=s, T=s,
+        causal=True, block_rows=OFFSET_BLOCK,
+        offsets=list(range(0, s, OFFSET_BLOCK)),
+        max_abs_err=max_err(got, ref), err_over_tol=ratio,
+        bitwise_equal_to_whole=bitwise, vs_whole_max_abs=max_err(got, whole),
+        ok=ratio <= 1.0,
+        ms=time_ms(blocks, sets),
+        whole_ms=time_ms(lambda a, b_, c: flash_attention(a, b_, c, True),
+                         sets),
+        plain_ms=time_ms(lambda a, b_, c: flash_attention_plain(a, b_, c,
+                                                                True), sets),
+        library_ms=time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+            a, b_, c, is_causal=True, enable_gqa=True), sets),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def _grown(cache, cfg, capacity: int):
+    """The prefill cache with its self-attention K/V padded to
+    ``capacity`` positions (a new tensor per leaf)."""
+    out = {}
+    for slot, leaves in cache.items():
+        mixer = cfg.block_pattern[int(slot[len("slot"):])][0]
+        out[slot] = {}
+        for name, x in leaves.items():
+            if mixer == "attn":
+                x = torch.cat([x, x.new_zeros(x.shape[:2] + (
+                    capacity - x.shape[2],) + x.shape[3:])], dim=2)
+            out[slot][name] = x.contiguous()
+    return out
+
+
+def _serve_run(prefill, decode, tokens, steps: int) -> dict:
+    """A prefill then ``steps`` greedy decode steps, synchronized around
+    each part: walls, peak allocated memory, each step's logits and the
+    last cache."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = prefill(tokens)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    all_logits = [logits[:, -1]]
+    tok = logits[:, -1].argmax(-1)[:, None]
+    cache = decode.grow(cache)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = decode(cache, tok, tokens.shape[1] + i)
+        all_logits.append(logits[:, -1])
+        tok = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    return dict(prefill_s=t1 - t0, decode_s=time.perf_counter() - t2,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                logits=torch.stack(all_logits), cache=cache)
+
+
+def sharded_qwen(card: str) -> tuple:
+    """Full-width qwen3-8b in bf16 under the launcher's NCCL (1, 1) mesh:
+    ``sharded_prefill`` of a 2048-token prompt and 32
+    ``sharded_decode_step``s on DTensor parameters (the meshless run's
+    tensors as their local shards) against the meshless ``prefill`` and
+    ``decode_step``: logits (prefill and every step) and the last cache
+    equal bit for bit; flash 36 launches a prefill, decode 36 a step, each
+    writing its lse.  Run in turns (meshless, sharded, sharded,
+    meshless), each run's walls and peak.  (row, what failed, the first
+    sharded run's launches)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import Shape
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.context import placements, use_rules
+    from repro_torch.distributed.serve_step import (sharded_decode_step,
+                                                    sharded_prefill)
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import get_model, transformer
+    from repro_torch.models.transformer import tree_leaves
+    import torch.distributed as dist
+    init_distributed("cuda")
+    mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+    dm = mesh.device_mesh
+    model = get_model("qwen3-8b")
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init_params(generator=gen, dtype=torch.bfloat16,
+                               device="cuda")
+    dparams = shd.map2(lambda x, pl: DTensor.from_local(x, dm, pl,
+                                                        run_check=False),
+                       params, shd.param_placements(params, cfg, mesh))
+    prompt = torch.randint(0, cfg.vocab_size, (1, SHARDED_PROMPT),
+                           generator=gen, device="cuda")
+    cap = SHARDED_PROMPT + SHARDED_STEPS
+    pre_shape = Shape("prefill", "prefill", SHARDED_PROMPT, 1)
+    dec_shape = Shape("decode", "decode", cap, 1)
+
+    def meshless_decode(cache, tok, pos):
+        return transformer.decode_step(params, cache, tok, pos, cfg)
+    meshless_decode.grow = lambda c: _grown(c, cfg, cap)
+
+    def mesh_prefill(tok):
+        with use_rules(mesh, shd.logical_rules(cfg, pre_shape, mesh)):
+            logits, cache = sharded_prefill(dparams, {"tokens": tok}, cfg)
+        return logits.to_local(), cache
+
+    def mesh_decode(cache, tok, pos):
+        with use_rules(mesh, shd.logical_rules(cfg, dec_shape, mesh)):
+            logits, cache = sharded_decode_step(dparams, cache, tok, pos,
+                                                cfg)
+        return logits.to_local(), cache
+
+    def mesh_grow(cache):
+        local = _grown({s: {k: x.to_local() for k, x in leaves.items()}
+                        for s, leaves in cache.items()}, cfg, cap)
+        c_place = shd.map2(lambda _, sp: placements(sp, mesh), local,
+                           shd.cache_specs(cfg, dec_shape, mesh))
+        return shd.map2(lambda x, pl: DTensor.from_local(x, dm, pl,
+                                                         run_check=False),
+                        local, c_place)
+    mesh_decode.grow = mesh_grow
+
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+    def meshless_run():
+        return _serve_run(lambda tok: transformer.prefill(
+            params, {"tokens": tok}, cfg), meshless_decode, prompt,
+            SHARDED_STEPS)
+    # in turns, meshless, sharded, sharded, meshless: the walls of each
+    # pair beside each other; the first sharded run's launches counted
+    plain = meshless_run()
+    _reset_launches()
+    sharded = _serve_run(mesh_prefill, mesh_decode, prompt, SHARDED_STEPS)
+    launches = _launches()
+    cache = [x.to_local() for x in tree_leaves(sharded["cache"])]
+    differ = sum(not torch.equal(a, b) for a, b in
+                 zip(cache, tree_leaves(plain["cache"])))
+    del sharded["cache"], plain["cache"]
+    again = _serve_run(mesh_prefill, mesh_decode, prompt, SHARDED_STEPS)
+    plain_again = meshless_run()
+    differ += not (torch.equal(again["logits"], sharded["logits"]) and
+                   torch.equal(plain_again["logits"], plain["logits"]))
+    attn = sum(m == "attn" for m, _ in cfg.block_pattern) * cfg.n_periods
+    # one prefill and SHARDED_STEPS decode steps: every launch counted
+    want = {**_no_launches(), "flash_attention/wgmma": attn,
+            "decode_attention": SHARDED_STEPS * attn,
+            "decode_attention:lse": SHARDED_STEPS * attn}
+    row = dict(
+        card=card, model=cfg.name, dtype="bfloat16",
+        backend=dist.get_backend(),
+        mesh=[1, 1], prompt_len=SHARDED_PROMPT, decode_steps=SHARDED_STEPS,
+        logits_equal=bool(torch.equal(sharded["logits"], plain["logits"])),
+        tokens_equal=bool(torch.equal(sharded["logits"].argmax(-1),
+                                      plain["logits"].argmax(-1))),
+        cache_leaves_differ=differ,
+        launches={k: n for k, n in launches.items() if n},
+        expected_launches={k: n for k, n in want.items() if n},
+        **{f"{k}_{name}": [r[k] for r in runs] for name, runs in (
+            ("sharded", (sharded, again)), ("meshless", (plain, plain_again)))
+           for k in ("prefill_s", "decode_s", "peak_gb")})
+    for k in ("prefill", "decode"):
+        row[f"{k}_over_meshless"] = [
+            a[f"{k}_s"] / b[f"{k}_s"] for a, b in ((sharded, plain),
+                                                   (again, plain_again))]
+    bad = []
+    if not (row["logits_equal"] and row["tokens_equal"]) or differ:
+        bad.append("the sharded run is not the meshless run bit for bit")
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    del params, dparams, plain, sharded, again, plain_again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, bad, launches
+
+
+def phase_serve_sharded(card: str):
+    """(b) full-width qwen3-8b sharded serving under the NCCL (1, 1) mesh,
+    bit for bit the meshless path, first and alone on the host; then (a)
+    the two kernels' new modes at serving shapes: decode split over 16
+    blocks of a decode_32k cache and merged, at G 4 and G 8; flash as
+    four blocks of query rows at their offsets, in bf16 (wgmma) and f32
+    (CUDA-core); while (c) the reference's serving cells run through the
+    dry-run's command line on fake tensors of the card, the 16x16 mesh,
+    each in a subprocess on the host's cores: each ok, FLOPs per device
+    over the analytic count, collective bytes by kind, peak and fit."""
+    out = ROOT / "build" / "serve_sharded"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    # (b) first, alone: its walls are the host's, which the dry-runs'
+    # traces would share
+    row, bad, launches = sharded_qwen(card)
+    emit("serve_sharded", **row)
+    jobs = {f"{arch}|{shape}": _start(
+        ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--mesh", "single", "--out", str(out / f"{arch}_{shape}.json")],
+        out / f"{arch}_{shape}.log") for arch, shape in SERVE_CELLS}
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        torch.use_deterministic_algorithms(True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        modes = [split_decode_case(gen, hkv) for hkv in (HKV, 4)]
+        modes += [offset_flash_case(gen, dtype)
+                  for dtype in (torch.bfloat16, torch.float32)]
+        for r in modes:
+            emit("kernel_mode", card=card, **r)
+        MODE_ROWS.extend(modes)
+        walls = {name: _finish(job, name) for name, job in jobs.items()}
+    finally:
+        for proc, fh, _ in jobs.values():
+            proc.kill()
+            proc.wait()
+            fh.close()
+    cells = {}
+    for arch, shape in SERVE_CELLS:
+        key = f"{arch}|{shape}"
+        c = json.loads((out / f"{arch}_{shape}.json").read_text())[
+            f"{key}|single"]
+        cells[key] = dict(
+            status=c["status"], error=c.get("error"), wall_s=walls[key],
+            **({} if c["status"] != "ok" else dict(
+                flops_per_device=c["flops_per_device"],
+                analytic_flops_per_device=c["analytic_flops_per_device"],
+                flops_over_analytic=c["flops_per_device"]
+                / c["analytic_flops_per_device"],
+                collective_gb={k[len("coll_"):]: v / 1e9
+                               for k, v in c["collectives"].items()},
+                peak_gb=c["memory"]["peak"] / 1e9,
+                argument_gb=c["memory"]["argument"] / 1e9,
+                fits_hbm=c["fits_hbm"], device=c["device"],
+                trace_s=c["compile_s"])))
+    emit("serve_sharded_cells", card=card, note="dry-run: reckoned on fake "
+         "tensors of the card, not measured", cells=cells)
+    bad += [f"{r['kernel']} {r['mode']}: {r}" for r in modes if not r["ok"]]
+    for key, c in cells.items():
+        if c["status"] != "ok":
+            bad.append(f"{key}: {c['status']} {c.get('error')}")
+        elif key in SERVE_FACTOR_CELLS and not (
+                SERVE_FACTOR[0] <= c["flops_over_analytic"] <= SERVE_FACTOR[1]
+                and c["fits_hbm"]):
+            bad.append(f"{key}: {c['flops_over_analytic']} x the analytic "
+                       f"FLOPs, fits {c['fits_hbm']}")
+    if bad:
+        raise SystemExit(f"serve_sharded: {bad}")
+    return launches
+
+
 # the kernels whose compiled code phase 1 reports: name -> a pattern of
 # its mangled name (the decode kernel at bf16, D 128, groups up to 4; the
 # CUDA-core GEMM on its 16-byte path, and flash at f32, D 128)
@@ -2078,7 +2507,7 @@ def compiled_kernels(lib_path: Path):
 
 PHASES = ("kernels", "gemm", "tiny", "serve", "serve_f32", "path",
           "serve_moe", "serve_dense", "serve_ssm", "serve_vlm_audio", "train",
-          "distributed", "dryrun")
+          "distributed", "dryrun", "serve_sharded")
 # the kernels line: name, launch counter, source, TPU kernel, headline row
 KERNELS = [
     ("flash_attention_wgmma_bf16", "flash_attention/wgmma",
@@ -2106,6 +2535,33 @@ KERNELS = [
 ]
 
 
+# the kernels' modes on the kernels line: entry name -> (mode, launch
+# counter, the mode row's fields)
+MODES = {
+    "flash_attention_wgmma_bf16": ("q_offset", "flash_attention:q_offset",
+                                   dict(mode="q_offset", dtype="bfloat16")),
+    "flash_attention_cuda_core_f32": ("q_offset", "flash_attention:q_offset",
+                                      dict(mode="q_offset", dtype="float32")),
+    "decode_attention": ("split_lse", "decode_attention:lse",
+                         dict(mode="split_lse", Hkv=HKV)),
+}
+
+
+def _mode(name, launches):
+    """The mode row of a kernels-line entry, with its launches on the
+    paths (flash's query offset splits query rows over a 'model' axis of
+    more than one card, so no path on one card launches it)."""
+    if name not in MODES or not MODE_ROWS:
+        return {}
+    mode, counter, at = MODES[name]
+    r = next(r for r in MODE_ROWS if all(r.get(k) == v for k, v in at.items()))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "whole_device_ms", "whole_ms",
+            "library_device_ms", "bitwise_equal_to_whole", "timed_pos")
+    return {"modes": {mode: dict(launches=launches[counter],
+                                 **{k: r[k] for k in keys if k in r})}}
+
+
 def kernels_line(rows, launches):
     kernels = []
     for name, counter, src, replaces, head_at in KERNELS:
@@ -2123,7 +2579,7 @@ def kernels_line(rows, launches):
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"], at=head_at,
             **{key: head[key] for key in ("device_ms", "library_device_ms")
-               if key in head}))
+               if key in head}, **_mode(name, launches)))
     return kernels
 
 
@@ -2170,7 +2626,7 @@ def main(argv=None) -> int:
              ("serve_ssm", phase_serve_ssm),
              ("serve_vlm_audio", phase_serve_vlm_audio),
              ("train", phase_train), ("distributed", phase_distributed),
-             ("dryrun", phase_dryrun)]
+             ("dryrun", phase_dryrun), ("serve_sharded", phase_serve_sharded)]
     for phase, run in paths:
         if phase in phases:
             t0 = time.perf_counter()

@@ -15,6 +15,10 @@ whose backward is the forward's exact adjoint over the processes:
 
 So when every process differentiates its own loss, each local tensor's
 gradient is that of the sum of all the processes' losses.
+
+``merge_partials`` combines attention outputs computed over blocks of a
+split KV cache (the decode kernel's output and log-sum-exp on each
+process) into the output over the whole cache.
 """
 from __future__ import annotations
 
@@ -160,3 +164,29 @@ def sum_replicated(g: torch.Tensor, placements, mesh) -> torch.Tensor:
         if p.is_replicate():
             dist.all_reduce(g, group=mesh.get_group(i))
     return g
+
+
+def combine_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The attention output over every block from each block's output
+    ``outs`` (n, ..., D) and log-sum-exp ``lses`` (n, ...): weights
+    w_r = exp(lse_r - max lse), out = sum_r w_r out_r / sum_r w_r, in f32,
+    summed in block order; cast to ``outs``' dtype.  A block of no key
+    (lse -1e30) weighs nothing."""
+    w = torch.exp(lses - lses.amax(dim=0))[..., None]
+    acc = w[0] * outs[0].float()
+    for r in range(1, outs.shape[0]):
+        acc = acc + w[r] * outs[r].float()
+    return (acc / w.sum(dim=0)).to(outs.dtype)
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor, mesh,
+                   axes: Sequence[Axis]) -> torch.Tensor:
+    """Each process's attention output ``out`` (..., D) over its block of
+    the cache and its f32 log-sum-exp ``lse`` (...), gathered over
+    ``axes`` and combined in rank order (:func:`combine_partials`), so the
+    result is the same on every process and bitwise equal from run to
+    run.  On a group of one it is ``out`` itself."""
+    outs = all_gather(out[None], 0, mesh, axes)
+    if outs.shape[0] == 1:
+        return out
+    return combine_partials(outs, all_gather(lse[None], 0, mesh, axes))

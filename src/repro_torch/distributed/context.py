@@ -29,6 +29,17 @@ guard), and if so the axis, its size and this process's index; it then
 computes its block of that dimension and joins the blocks with the
 collectives of ``collectives.py``.  Anywhere else ``tp_split`` is None
 and the model computes whole.
+
+``ShardCtx.serve`` marks the sharded serving step's context
+(``distributed/serve_step.py``), where the rules are a prefill's or a
+decode's: ``tp_split`` answers there too, for ``heads``/``qseq``
+(prefill), ``ff``, ``vocab``, ``inner``, ``experts`` and ``kv_seq``
+(decode), and a name may map to several axes (``kv_seq`` and ``inner``
+over ('data', 'model') or ('pod', 'data', 'model') for ``long_500k``):
+the split is then over their product, this process's index its place in
+major-to-minor order.  ``model_split(dim)`` is the split of a dimension
+over 'model' alone wherever 'model' divides it, whatever the rules say:
+the heads of a decode's projections, placed by ``param_specs``.
 """
 from __future__ import annotations
 
@@ -109,10 +120,11 @@ def current() -> Optional["ShardCtx"]:
 
 
 class Split(NamedTuple):
-    """One dimension split over the 'model' axis: the ``DeviceMesh``, the
-    axes for ``collectives.py`` (``("model",)``), their process count
-    ``n`` and this process's ``index``, whose block of a dimension of
-    ``dim`` starts at ``index * dim // n``."""
+    """One dimension split over mesh axes (the 'model' axis, or in the
+    serving context several, major to minor): the ``DeviceMesh``, the
+    axes for ``collectives.py``, their process count ``n`` and this
+    process's ``index`` over them, whose block of a dimension of ``dim``
+    starts at ``index * dim // n``."""
     mesh: DeviceMesh
     axes: Tuple[str, ...]
     n: int
@@ -126,11 +138,13 @@ class Split(NamedTuple):
 
 class ShardCtx:
     def __init__(self, mesh, rules: Dict[str, Axes],
-                 row_axes: Tuple[str, ...] = (), tp: bool = False):
+                 row_axes: Tuple[str, ...] = (), tp: bool = False,
+                 serve: bool = False):
         self.mesh = mesh
         self.rules = dict(rules)
         self.row_axes = tuple(row_axes)
         self.tp = tp
+        self.serve = serve
 
     def splits(self, name: str) -> bool:
         """Whether the rules map the logical ``name`` to 'model' alone."""
@@ -138,18 +152,49 @@ class ShardCtx:
 
     def tp_split(self, name: str, dim: int) -> Optional[Split]:
         """The split of a dimension of ``dim`` that the reference hints as
-        ``name``, in the sharded train step's context (``tp``) where the
-        rules map ``name`` to 'model' and 'model' divides ``dim``; else
-        None (the dimension is whole on every process)."""
-        if not (self.tp and self.splits(name)) \
-                or TP not in self.mesh.axis_names:
+        ``name``: in the sharded train step's context (``tp``) where the
+        rules map ``name`` to 'model', in the serving context (``serve``)
+        to any mesh axes, and where those axes divide ``dim``; else None
+        (the dimension is whole on every process)."""
+        mapped = self.rules.get(name)
+        if self.serve and mapped:
+            return self.split_over((mapped,) if isinstance(mapped, str)
+                                   else tuple(mapped), dim)
+        if not (self.tp and self.splits(name)):
+            return None
+        return self.split_over((TP,), dim)
+
+    def shard_split(self, name: str) -> Optional[Split]:
+        """In the serving context, the split of a dimension that the
+        caller already holds as its block (a cache leaf placed by the
+        rules, so the axes divide it): the axes the rules map ``name`` to,
+        with no divisibility guard; else None."""
+        # a dimension of 0 passes the guard: every process count divides it
+        return self.tp_split(name, 0) if self.serve else None
+
+    def model_split(self, dim: int) -> Optional[Split]:
+        """The split of ``dim`` over 'model' in either step's context,
+        where 'model' divides it; else None."""
+        return self.split_over((TP,), dim) if self.tp or self.serve else None
+
+    def split_over(self, axes: Tuple[str, ...], dim: int
+                   ) -> Optional[Split]:
+        """The split of ``dim`` over ``axes`` (major to minor), or None
+        where an axis is not the mesh's or their product does not divide
+        ``dim``."""
+        names = self.mesh.axis_names
+        if not all(a in names for a in axes):
             return None
         dm = self.mesh.device_mesh
-        i = self.mesh.axis_names.index(TP)
-        n = dm.size(i)
+        coord = dm.get_coordinate()
+        n, index = 1, 0
+        for a in axes:
+            i = names.index(a)
+            n *= dm.size(i)
+            index = index * dm.size(i) + int(coord[i])
         if dim % n:
             return None
-        return Split(dm, (TP,), n, int(dm.get_coordinate()[i]))
+        return Split(dm, tuple(axes), n, index)
 
     def spec(self, *logical: Optional[str]) -> PartitionSpec:
         axes = []
@@ -194,6 +239,13 @@ def tp_split(name: str, dim: int) -> Optional[Split]:
     context."""
     ctx = current()
     return None if ctx is None else ctx.tp_split(name, dim)
+
+
+def model_split(dim: int) -> Optional[Split]:
+    """The current context's :meth:`ShardCtx.model_split`; None outside a
+    context."""
+    ctx = current()
+    return None if ctx is None else ctx.model_split(dim)
 
 
 def hint(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:

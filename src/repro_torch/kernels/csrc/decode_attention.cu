@@ -34,16 +34,22 @@
 // - pos from device memory.  The launcher takes a host pos or a pointer to
 //   one int32 on the card (the TPU kernel's scalar prefetch).  The grid is
 //   sized from T; blocks whose chunk starts past pos return at once, and
-//   pos is clamped to [0, T) so no value reads outside the cache.  One
+//   pos is clamped to [-1, T) so no value reads outside the cache.  One
 //   launch therefore serves every decode step and can be replayed from a
-//   CUDA graph.
+//   CUDA graph.  pos = -1 means the cache holds no key for this token (a
+//   block of a cache split over several processes, past the token): then
+//   every block returns at once but the first of each (batch, KV head),
+//   which writes out = 0 and lse = -1e30, a partial that weighs nothing
+//   when the processes' partials are merged.
 // - The merge, in the same launch.  The TPU kernel's sequential grid carried
 //   m, l, acc across KV tiles; here chunks run in parallel, and the last
 //   block of each (batch, KV head) to finish (an atomic ticket after a
 //   __threadfence) merges them and resets the ticket for the next launch.
 //   It stages the partials in shared memory by cp.async, all in flight at
 //   once, and sums them in a fixed order without atomics on values, so
-//   results are bitwise equal from run to run.
+//   results are bitwise equal from run to run.  On request it also writes
+//   each query head's log-sum-exp of its scores, lse = m + log l, which
+//   weighs this output against those of other blocks of the cache.
 #include "common.cuh"
 
 #include <cstdint>
@@ -66,6 +72,7 @@ struct DecodeParams {
   // outputs, then m_part and l_part (B, Hkv, n_splits, g)
   float* part;
   int* tickets;        // (B, Hkv), zero between launches
+  float* lse;          // (B, Hq) contiguous, or null: not written
   const int* pos_ptr;  // pos on the card, or null: then `pos`
   int pos;
   int B, Hkv, group, T, n_splits;
@@ -76,7 +83,7 @@ struct DecodeParams {
 
 __device__ __forceinline__ int live_pos(const DecodeParams& p) {
   const int pos = p.pos_ptr ? *p.pos_ptr : p.pos;
-  return min(max(pos, 0), p.T - 1);
+  return min(max(pos, -1), p.T - 1);
 }
 
 // 16 bytes of shared memory as f32 values
@@ -208,6 +215,9 @@ __device__ void merge(const DecodeParams& p, int b, int hk, int n_live,
     }
     __syncthreads();
   }
+  if (p.lse && tid < g)
+    p.lse[(long long)(b * p.Hkv + hk) * g + tid] =
+        m_run[tid] + logf(l_run[tid]);
   if (tid < g * D / 4) {
     const int gi = 4 * tid / D, d = 4 * tid % D;
     const float denom = fmaxf(l_run[gi], 1e-30f);
@@ -243,11 +253,21 @@ __global__ void __launch_bounds__(NT, G <= 4 ? 2 : 1)
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int pos = live_pos(p);
+  const int g = p.group, tid = threadIdx.x;
+  if (pos < 0) {  // no key: an output of zeros that weighs nothing
+    if (split != 0) return;
+    T* o = static_cast<T*>(p.o) + b * p.so[0] + (long long)hk * g * p.so[1];
+    for (int i = tid; i < g * D; i += NT)
+      o[(i / D) * p.so[1] + (i % D) * p.so[2]] = from_float<T>(0.f);
+    if (p.lse && tid < g)
+      p.lse[(long long)(b * p.Hkv + hk) * g + tid] = kNegInf;
+    return;
+  }
   const int n_live = pos / CHUNK + 1;
   if (split >= n_live) return;
-  const int g = p.group, t0 = split * CHUNK;
+  const int t0 = split * CHUNK;
   const int n_keys = min(CHUNK, pos + 1 - t0);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int warp = tid / 32, lane = tid % 32;
   const int li = tid % LPR, rg = tid / LPR;  // lane in its row, row group
 
   // the query group, requested before the cache, parked in shared memory
@@ -463,10 +483,13 @@ extern "C" int prema_decode_max_group() { return prema::MAXG; }
 // scratch of B * Hkv * n_splits * g * (D + 2) values with n_splits =
 // ceil(T / CHUNK); `tickets` B * Hkv int32 zeros (left zero).  Attends over
 // cache[0..pos] with pos = *pos_ptr if pos_ptr is not null, else `pos`,
-// clamped to [0, T).  One launch on `stream`; returns cudaGetLastError().
+// clamped to [-1, T); at pos = -1 it writes o = 0 (and lse = -1e30).  `lse`,
+// if not null, receives (B, Hq) contiguous f32 log-sum-exps of the scaled
+// scores.  One launch on `stream`; returns cudaGetLastError().
 extern "C" int prema_decode_attention(int dtype, const void* q, const void* k,
                                       const void* v, void* o, float* part,
-                                      int* tickets, const int* pos_ptr,
+                                      int* tickets, float* lse,
+                                      const int* pos_ptr,
                                       int pos, int B, int Hq, int Hkv, int T,
                                       int D, const long long* strides,
                                       float scale, void* stream) {
@@ -478,6 +501,7 @@ extern "C" int prema_decode_attention(int dtype, const void* q, const void* k,
   p.o = o;
   p.part = part;
   p.tickets = tickets;
+  p.lse = lse;
   p.pos_ptr = pos_ptr;
   p.pos = pos;
   p.B = B;

@@ -4,7 +4,9 @@
 // (_flash_kernel, launched by flash_attention_raw).  Same function: query
 // head h reads KV head h / (Hq / Hkv); scores in f32 scaled by D^-0.5;
 // running max, normaliser and accumulator in f32; masked scores -1e30;
-// causal mode (key <= query row) skips the tiles past the diagonal; ragged
+// causal mode (key <= query row + q_offset, where the rows are a block of
+// the sequence that starts at q_offset) skips the tiles past the diagonal;
+// ragged
 // keys past t_len masked; output acc / max(l, 1e-30) in q's type.  The
 // tensors are read and written through their strides, so the model's
 // (B,S,H,D) tensors need no transpose copy.  The TPU kernel's sequential
@@ -65,7 +67,9 @@ struct FlashParams {
   const void* k;
   const void* v;
   void* o;
-  int s_len, t_len, group, causal;
+  // causal: key j is visible to query row i iff j <= i + q_offset (the rows
+  // are a block of a longer sequence that starts at q_offset)
+  int s_len, t_len, group, causal, q_offset;
   long long sq[4], sk[4], sv[4], so[4];  // (b, h, s, d) strides in elements
   float scale;
 };
@@ -164,7 +168,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_simt_kernel(
   const int r0 = (tid / 32) * 16 + (lane / 16) * 8;
 
   int n_tiles = (p.t_len + BT - 1) / BT;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BT + 1);
+  if (p.causal) n_tiles = min(n_tiles, (q0 + BQ - 1 + p.q_offset) / BT + 1);
 
   // K and V rows of tile `it` into slot it % 2, by 16-byte cp.async,
   // zeros past t_len
@@ -244,7 +248,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_simt_kernel(
     // online softmax; masks only where the tile needs them
     const int k0 = it * BT;
     const bool masked =
-        k0 + BT > p.t_len || (p.causal && k0 + BT - 1 > q0 + r0);
+        k0 + BT > p.t_len || (p.causal && k0 + BT - 1 > q0 + r0 + p.q_offset);
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
       const int row = q0 + r0 + i;
@@ -254,7 +258,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_simt_kernel(
         float x = s[i][j] * scale;
         if (masked) {
           const int key = k0 + c + 16 * j;
-          if (key >= p.t_len || (p.causal && key > row)) x = kNegInf;
+          if (key >= p.t_len || (p.causal && key > row + p.q_offset))
+            x = kNegInf;
         }
         s[i][j] = x;
         mx = fmaxf(mx, x);
@@ -403,7 +408,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / p.group;
   int n_tiles = (p.t_len + BT - 1) / BT;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BT + 1);
+  if (p.causal) n_tiles = min(n_tiles, (q0 + BQ - 1 + p.q_offset) / BT + 1);
   const int w = warpgroup_index();
 
   // thread 0 issues every load: K and V of tile `it` into stage it % 2
@@ -444,7 +449,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
   const int t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32;
   const int lr0 = 64 * w + 16 * warp + lane / 4;
-  const int rows[2] = {q0 + lr0, q0 + lr0 + 8};
+  // causal bounds: the last key each of the thread's two rows sees
+  const int rows[2] = {q0 + lr0 + p.q_offset, q0 + lr0 + 8 + p.q_offset};
   const float scale = p.scale * kLog2e;     // scores in log2 units
   float o[64], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
@@ -474,7 +480,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
     // online softmax on the accumulator; mask only where a tile needs it
     const int k0 = it * BT;
     const bool masked = k0 + BT > p.t_len ||
-                        (p.causal && k0 + BT - 1 > q0 + 64 * w);
+                        (p.causal && k0 + BT - 1 > q0 + 64 * w + p.q_offset);
     float alpha[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -607,7 +613,8 @@ cudaError_t launch(const FlashParams& p, int B, int Hq, int Hkv,
 
 FlashParams make_params(const void* q, const void* k, const void* v, void* o,
                         int Hq, int Hkv, int S, int T,
-                        const long long* strides, float scale, int causal) {
+                        const long long* strides, float scale, int causal,
+                        int q_offset) {
   FlashParams p;
   p.q = q;
   p.k = k;
@@ -617,6 +624,7 @@ FlashParams make_params(const void* q, const void* k, const void* v, void* o,
   p.t_len = T;
   p.group = Hq / Hkv;
   p.causal = causal;
+  p.q_offset = q_offset;
   for (int i = 0; i < 4; ++i) {
     p.sq[i] = strides[i];
     p.sk[i] = strides[4 + i];
@@ -632,7 +640,9 @@ FlashParams make_params(const void* q, const void* k, const void* v, void* o,
 
 // q (B,Hq,S,D), k/v (B,Hkv,T,D), o (B,Hq,S,D), all of one element type and
 // with arbitrary strides: `strides` holds 16 values, (b, h, s, d) for q, k,
-// v and o in that order.  Launches on `stream`; returns cudaGetLastError().
+// v and o in that order.  With `causal`, key j is visible to query row i iff
+// j <= i + q_offset (q_offset >= 0; 0 for a whole sequence).  Launches on
+// `stream`; returns cudaGetLastError().
 //
 // The CUDA-core kernel: f32 or bf16, D in {8, 16, 32, 64, 80, 128}, unit
 // innermost strides, the other strides multiples of 16 bytes and 16-byte
@@ -641,10 +651,10 @@ extern "C" int prema_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* o, int B, int Hq,
                                      int Hkv, int S, int T, int D,
                                      const long long* strides, float scale,
-                                     int causal, void* stream) {
+                                     int causal, int q_offset, void* stream) {
   using namespace prema;
   const FlashParams p =
-      make_params(q, k, v, o, Hq, Hkv, S, T, strides, scale, causal);
+      make_params(q, k, v, o, Hq, Hkv, S, T, strides, scale, causal, q_offset);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kFloat32)
@@ -664,10 +674,10 @@ extern "C" int prema_flash_attention_wgmma(const void* q, const void* k,
                                            int Hq, int Hkv, int S, int T,
                                            const long long* strides,
                                            float scale, int causal,
-                                           void* stream) {
+                                           int q_offset, void* stream) {
   using namespace prema;
   const FlashParams p =
-      make_params(q, k, v, o, Hq, Hkv, S, T, strides, scale, causal);
+      make_params(q, k, v, o, Hq, Hkv, S, T, strides, scale, causal, q_offset);
   return static_cast<int>(
       wg::launch(p, B, Hq, Hkv, static_cast<cudaStream_t>(stream)));
 }

@@ -29,16 +29,17 @@ _lib: Optional[ctypes.CDLL] = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _S = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    # dtype, q, k, v, o, B, Hq, Hkv, S, T, D, strides, scale, causal, stream
+    # dtype, q, k, v, o, B, Hq, Hkv, S, T, D, strides, scale, causal,
+    # q_offset, stream
     "prema_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S,
-                              _F, _I, _P],
-    # dtype, q, k, v, o, part, tickets, pos_ptr, pos, B, Hq, Hkv, T, D,
+                              _F, _I, _I, _P],
+    # dtype, q, k, v, o, part, tickets, lse, pos_ptr, pos, B, Hq, Hkv, T, D,
     # strides, scale, stream
-    "prema_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _S, _F, _P],
-    # q, k, v, o, B, Hq, Hkv, S, T, strides, scale, causal, stream
+    "prema_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _S, _F, _P],
+    # q, k, v, o, B, Hq, Hkv, S, T, strides, scale, causal, q_offset, stream
     "prema_flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _S,
-                                    _F, _I, _P],
+                                    _F, _I, _I, _P],
     # dtype, x, y, acc_in, acc_out, M, N, accM, accN, lo, hi, strides, stream
     "prema_matmul_resumable": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S,
                                _P],

@@ -13,8 +13,8 @@ BF16_RTOL = 2.0 ** -8
 BF16_P_TERM = 2.0 ** -8
 
 
-def _probabilities(q: torch.Tensor, k: torch.Tensor,
-                   causal: bool) -> torch.Tensor:
+def _probabilities(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                   q_offset: int = 0) -> torch.Tensor:
     """The normalised softmax in f32, (B, Hkv, Hq/Hkv, S, T)."""
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
@@ -23,7 +23,7 @@ def _probabilities(q: torch.Tensor, k: torch.Tensor,
     if causal:
         rows = torch.arange(s, device=q.device)[:, None]
         cols = torch.arange(t, device=q.device)[None, :]
-        scores = torch.where(cols <= rows, scores, NEG_INF)
+        scores = torch.where(cols <= rows + q_offset, scores, NEG_INF)
     return torch.softmax(scores, dim=-1)
 
 
@@ -34,14 +34,17 @@ def _apply(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True) -> torch.Tensor:
+                          causal: bool = True, q_offset: int = 0
+                          ) -> torch.Tensor:
     """q: (B,Hq,S,D); k,v: (B,Hkv,T,D) → (B,Hq,S,D).  Causal: key j is
-    visible to query i iff j <= i."""
-    return _apply(_probabilities(q, k, causal), v.float()).to(q.dtype)
+    visible to query i iff j <= i + q_offset (the queries are rows
+    q_offset.. of a longer sequence)."""
+    return _apply(_probabilities(q, k, causal, q_offset),
+                  v.float()).to(q.dtype)
 
 
 def bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool = True) -> torch.Tensor:
+                   causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Elementwise tolerance, (B,Hq,S,D) f32, of the bf16 tensor-core
     kernel's output against :func:`flash_attention_plain` run in f32 on the
     same (bf16) values:
@@ -58,7 +61,7 @@ def bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     taken twice over.  A dropped key tile, a causal mask one key short or
     long, and a wrong KV head each exceed it by more than 2x
     (``tests/test_torch_tensorcore_numerics.py`` simulates each)."""
-    p = _probabilities(q, k, causal)
+    p = _probabilities(q, k, causal, q_offset)
     vf = v.float()
     return (BF16_ATOL + BF16_RTOL * _apply(p, vf).abs()
             + BF16_P_TERM * _apply(p, vf.abs()))

@@ -14,6 +14,11 @@ never padded to tiles: the kernels take the ragged edges (TMA's zero fill,
 or masks) and read x and y through their strides.  The checkpoint's
 accumulator keeps the reference's padded (Mp, Np) shape, so its
 ``context_bytes`` are the same; the padding stays 0.
+
+A launch is the custom op ``prema::matmul_resumable``, which writes the
+accumulator it is given, as the attention kernels' launches are ops: fake
+tensors trace through it (its fake implementation writes nothing), and
+its FLOP formula counts the plain version's products over the K range.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import DTYPE_CODES, cuda_lib, tma_operand
 from repro_torch.kernels.preemptible_matmul.ref import matmul_partial_plain
@@ -61,7 +67,6 @@ def matmul_resumable(x: torch.Tensor, y: torch.Tensor, acc_in: torch.Tensor,
     not a multiple of 8 elements, base not 16-byte aligned) is copied first
     into rows padded to 16 bytes (:func:`repro_torch.kernels.tma_operand`).
     """
-    global launches
     if x.dim() != 2 or y.dim() != 2 or acc_in.dim() != 2:
         raise ValueError(f"x, y and acc must be matrices, got x{tuple(x.shape)}"
                          f" y{tuple(y.shape)} acc{tuple(acc_in.shape)}")
@@ -97,10 +102,24 @@ def matmul_resumable(x: torch.Tensor, y: torch.Tensor, acc_in: torch.Tensor,
         return out.copy_(acc_in)
     if x.device.type == "cpu":
         return out.copy_(matmul_partial_plain(x, y, acc_in, k_start, k_end, bk))
-    variant = kernel_variant(x.dtype, bk)
+    kernel_variant(x.dtype, bk)    # raises for a bf16 bk off the stages
+    torch.ops.prema.matmul_resumable(x, y, acc_in, out, k_start * bk,
+                                     min(k_end * bk, k))
+    return out
+
+
+@torch.library.custom_op("prema::matmul_resumable", mutates_args=("out",),
+                         device_types="cuda")
+def _launch(x: torch.Tensor, y: torch.Tensor, acc_in: torch.Tensor,
+            out: torch.Tensor, lo: int, hi: int) -> None:
+    """One launch: ``out = acc_in + x[:, lo:hi] @ y[lo:hi]`` (``out`` may
+    be ``acc_in``)."""
+    global launches
+    m, k = x.shape
+    n = y.shape[1]
+    variant = kernel_variant(x.dtype, WGMMA_BK)
     lib, stream = cuda_lib.library(), torch.cuda.current_stream(
         x.device).cuda_stream
-    lo, hi = k_start * bk, min(k_end * bk, k)
     if variant == "wgmma":
         x, y = tma_operand(x), tma_operand(y)
     ptrs = (x.data_ptr(), y.data_ptr(), acc_in.data_ptr(), out.data_ptr())
@@ -116,7 +135,17 @@ def matmul_resumable(x: torch.Tensor, y: torch.Tensor, acc_in: torch.Tensor,
     cuda_lib.check(err, f"matmul_resumable ({variant})")
     launches += 1
     variant_launches[variant] += 1
-    return out
+
+
+@_launch.register_fake
+def _(x, y, acc_in, out, lo, hi):
+    return None
+
+
+@register_flop_formula(torch.ops.prema.matmul_resumable)
+def _flops(x_shape, y_shape, acc_shape, dst_shape, lo, hi, *args, **kwargs):
+    """The plain version's: an (M, N) product over ``hi - lo`` rows."""
+    return 2 * x_shape[0] * y_shape[1] * (hi - lo)
 
 
 @dataclasses.dataclass

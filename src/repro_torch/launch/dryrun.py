@@ -7,10 +7,13 @@ the reference's mesh over it, makes the parameters, optimizer state,
 batch and cache as fake tensors (``FakeTensorMode``: shapes and dtypes, no
 memory) placed by the port's sharding rules, and runs one rank's step:
 
-    train_4k    -> make_train_step  (the sharded gradient, then AdamW)
-    prefill_32k -> prefill          (encoder forward for encoder-only archs)
-    decode_32k  -> decode_step      (one token against a full KV/SSM cache)
-    long_500k   -> decode_step      (524k context; sub-quadratic archs only)
+    train_4k    -> make_train_step      (the sharded gradient, then AdamW)
+    prefill_32k -> sharded_prefill      (encoder forward for encoder-only
+                                         archs)
+    decode_32k  -> sharded_decode_step  (one token against a full KV/SSM
+                                         cache)
+    long_500k   -> sharded_decode_step  (524k context; sub-quadratic archs
+                                         only)
 
 while ``launch/op_count.py`` counts its FLOPs, bytes and collectives and
 ``MemTracker`` follows the bytes of its live tensors.  Nothing is
@@ -27,21 +30,25 @@ is the port's, as it runs:
   ``apply_updates``, which updates a moment on its parameter's shard,
   place them; its batch is the whole global batch on every rank, as the
   launcher hands it over, and ``_sharded_grad`` takes this rank's rows;
-* the port has no sharded serving path, so a serving cell makes each
-  parameter leaf whole by the port's own all-gathers
-  (``collectives.make_whole``), and each cache leaf whole over every dim
-  but its rows, then runs ``prefill`` or ``decode_step`` on this rank's
-  rows as ``batch_specs`` places them.  Its FLOPs, bytes and collectives
-  are reported as counted, not divided by the chip count.
+* a serving cell runs the port's sharded serving step
+  (``distributed/serve_step.py``) on the parameters placed by
+  ``param_specs`` and, for decode, a full cache placed by
+  ``cache_specs``, with this rank's rows of the batch as ``batch_specs``
+  places them: heads (or query rows) of prefill, d_ff, the vocabulary,
+  Mamba's channels and the experts over 'model', decode's cache over
+  ``kv_seq`` with the blocks' partials merged across ranks.  Its FLOPs,
+  bytes and collectives are reported as counted.
 
 The fake tensors carry ``device``, ``cuda`` unless the caller asks for
 ``cpu``.  A train cell runs no kernel on either, so it traces the card's
-path on both.  A serving cell of an arch with attention reaches the flash
-and decode kernels on the card, which have no fake implementations yet:
-on ``cuda`` it is skipped with that reason, and ``--device cpu`` traces
-the plain path instead (whose prefill materializes the attention scores,
-so its memory is not the card's).  The reference's model never reaches its
-Pallas kernels either.
+path on both.  On ``cuda`` a serving cell's attention reaches the flash
+and decode kernels, as on the card: their launches are custom ops
+(``prema::flash_attention``, ``prema::decode_attention``) whose fake
+implementations give the outputs' shapes and whose FLOP formulas count
+what their plain versions compute, so every serving cell traces the
+card's path there; ``--device cpu`` traces the plain path (whose prefill
+materializes the attention scores, so its memory is not the card's).
+The reference's model never reaches its Pallas kernels.
 
 Memory: ``argument`` is the bytes of what the step is handed on this rank
 (local shards of the parameters, moments and cache; the batch as the step
@@ -69,15 +76,16 @@ import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed._tools.mem_tracker import MemTracker
 from torch.distributed.device_mesh import init_device_mesh
-from torch.distributed.tensor import Replicate
+from torch.distributed.tensor import DTensor
 
 from repro_torch import configs
 from repro_torch.configs import SHAPES, ArchConfig, Shape, applicable
 from repro_torch.core import arch_ops
-from repro_torch.distributed import collectives as col
 from repro_torch.distributed import elastic
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.context import Mesh, placements, use_rules
+from repro_torch.distributed.serve_step import (sharded_decode_step,
+                                                sharded_prefill)
 from repro_torch.hw import H100
 from repro_torch.launch.op_count import counting, nbytes
 from repro_torch.models import transformer
@@ -150,19 +158,6 @@ def cell_config(arch: str, shape_name: str,
     return cfg, applied, ok, why
 
 
-def kernel_reason(cfg: ArchConfig, shape: Shape, device) -> str:
-    """Why a runnable cell cannot be traced on fake tensors of ``device``,
-    or "": on the card a serving step of an arch with attention runs the
-    flash or decode kernel, which fake tensors cannot run."""
-    if (torch.device(device).type == "cuda" and shape.kind != "train"
-            and any(m in ("attn", "cross_attn")
-                    for m, _ in cfg.block_pattern)):
-        return ("its serving path on cuda runs the attention kernels, "
-                "which have no fake implementations yet; --device cpu "
-                "traces the plain path")
-    return ""
-
-
 @contextlib.contextmanager
 def fake_mesh(shape: Sequence[int], axes: Sequence[str],
               device="cuda") -> Iterator[Mesh]:
@@ -183,11 +178,23 @@ def fake_mesh(shape: Sequence[int], axes: Sequence[str],
         dist.destroy_process_group()
 
 
-def _batch(cfg: ArchConfig, shape: Shape, mesh, device, rows: bool
-               ) -> Dict[str, torch.Tensor]:
+def _placed(shape, dtype, pl, mesh, device) -> DTensor:
+    """A DTensor of ``shape`` placed as ``pl``, from its local shard (zeros;
+    fake under ``FakeTensorMode``): no collective."""
+    dm = mesh.device_mesh
+    local = list(shape)
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            local[p.dim] //= dm.size(i)
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device),
+                              dm, pl, run_check=False)
+
+
+def _batch(cfg: ArchConfig, shape: Shape, mesh, device, placed: bool = False
+           ) -> Dict[str, torch.Tensor]:
     """The cell's inputs (zeros; fake under ``FakeTensorMode``): the whole
-    global batch, or with ``rows`` this rank's rows as ``batch_specs``
-    places them."""
+    global batch, or with ``placed`` DTensors placed by ``batch_specs``
+    (this rank's rows)."""
     b, s = shape.global_batch, shape.seq_len
     leaves = {}
     if cfg.embedding_inputs:
@@ -200,11 +207,11 @@ def _batch(cfg: ArchConfig, shape: Shape, mesh, device, rows: bool
     if cfg.img_tokens:
         leaves["img_embeds"] = ((b, cfg.img_tokens, cfg.d_vision),
                                 torch.bfloat16)
-    specs = shd.batch_specs(cfg, shape, mesh)
-    local = lambda sh, spec: tuple(d // shd.axis_size(mesh, ax)
-                                   for d, ax in zip(sh, spec))
-    return {k: torch.zeros(local(sh, specs[k]) if rows else sh, dtype=dt,
-                           device=device)
+    if not placed:
+        return {k: torch.zeros(sh, dtype=dt, device=device)
+                for k, (sh, dt) in leaves.items()}
+    place = _specs_placements(shd.batch_specs(cfg, shape, mesh), mesh)
+    return {k: _placed(sh, dt, place[k], mesh, device)
             for k, (sh, dt) in leaves.items()}
 
 
@@ -233,42 +240,31 @@ def _train_step(cfg, shape, mesh, tcfg, dtype, device):
                          _specs_placements(o_specs[k], mesh))
                      for k in opt}}
     state = elastic.distribute({"params": params, "opt": opt}, place, mesh)
-    batch = _batch(cfg, shape, mesh, device, rows=False)
+    batch = _batch(cfg, shape, mesh, device)
     step = make_train_step(cfg, tcfg)
     return (state["params"], state["opt"], batch), step
 
 
 def _serve_step(cfg, shape, mesh, dtype, device):
-    """(arguments, step) of a prefill or decode cell: the parameters and
-    cache as local shards, this rank's rows; the step makes each
-    parameter whole and each cache leaf whole over all but its rows
-    (dim 1), then runs ``prefill`` or ``decode_step``."""
-    dm = mesh.device_mesh
-    params = _params(cfg, dtype, device)
-    p_place = shd.param_placements(params, cfg, mesh)
-    local = shd.map2(lambda x, pl: x.to_local(),
-                     elastic.distribute(params, p_place, mesh), p_place)
-    batch = _batch(cfg, shape, mesh, device, rows=True)
-    whole = lambda p: shd.map2(lambda x, pl: col.make_whole(x, pl, dm),
-                               p, p_place)
+    """(arguments, step) of a prefill or decode cell: the parameters, the
+    cache and this rank's rows of the batch as DTensors placed by the
+    rules; the step ``sharded_prefill`` or ``sharded_decode_step`` at the
+    cache's last position."""
+    meta = transformer.init_params(cfg, generator=torch.Generator(),
+                                   dtype=dtype, device="meta")
+    params = shd.map2(lambda x, pl: _placed(x.shape, x.dtype, pl, mesh,
+                                            device),
+                      meta, shd.param_placements(meta, cfg, mesh))
+    batch = _batch(cfg, shape, mesh, device, placed=True)
     if shape.kind == "prefill":
-        return (local, batch), lambda p, b: transformer.prefill(whole(p), b,
-                                                                cfg)
+        return (params, batch), lambda p, b: sharded_prefill(p, b, cfg)
     c_shape = transformer.cache_spec(cfg, shape.global_batch, shape.seq_len,
                                      dtype)
     c_place = _specs_placements(shd.cache_specs(cfg, shape, mesh), mesh)
-    cache = shd.map2(
-        lambda s, pl: elastic.distribute(
-            torch.zeros(s.shape, dtype=s.dtype, device=device), pl,
-            mesh).to_local(), c_shape, c_place)
-    over_rows = shd.map2(lambda _, pl: [Replicate() if p.is_shard(1) else p
-                                        for p in pl], c_place, c_place)
-
-    def step(p, c, b):
-        c = shd.map2(lambda x, pl: col.make_whole(x, pl, dm), c, over_rows)
-        return transformer.decode_step(whole(p), c, b["tokens"],
-                                       shape.seq_len - 1, cfg)
-    return (local, cache, batch), step
+    cache = shd.map2(lambda s, pl: _placed(s.shape, s.dtype, pl, mesh,
+                                           device), c_shape, c_place)
+    return (params, cache, batch), lambda p, c, b: sharded_decode_step(
+        p, c, b["tokens"], shape.seq_len - 1, cfg)
 
 
 def trace_step(cfg: ArchConfig, shape: Shape, mesh, *,
@@ -319,11 +315,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     if not ok:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": why}
-    why = kernel_reason(cfg, shape, device)
-    if why:
-        return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-                "status": "skipped", "reason": why,
-                "device": torch.device(device).type}
     mesh_axes = (((2, 16, 16), ("pod", "data", "model")) if multi_pod
                  else ((16, 16), ("data", "model")))
     with fake_mesh(*mesh_axes, device=device) as mesh:
@@ -398,9 +389,9 @@ def main(argv=None):
                     help="also attribute FLOPs and collective bytes to the "
                          "port's functions (the top 25 of each)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="device of the fake tensors (cpu traces the plain "
-                         "path; cuda skips serving cells that would run "
-                         "the attention kernels)")
+                    help="device of the fake tensors (cuda traces the "
+                         "card's path, the kernels through their fake "
+                         "implementations; cpu the plain path)")
     ap.add_argument("--out", default="results/dryrun_torch.json")
     args = ap.parse_args(argv)
 

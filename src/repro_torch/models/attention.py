@@ -28,6 +28,29 @@ reference's rules say (``distributed.context.tp_split``):
   rows against the keys and values of every row, computed whole from
   the whole input (no collective), the causal mask over global row
   indices; the output rows are gathered back over 'model'.
+
+In the sharded serving step's context (``distributed/serve_step.py``)
+prefill splits the same way, through the flash kernel on the local heads
+or, for a block of query rows, at their offset (``q_offset``); then it
+lays the K/V it returns out as decode keeps them, every KV head at this
+process's block of positions over 'model' (the reference pins prefill's
+cache to its decode sharding): one all_to_all from heads to positions, or
+where the query heads do not divide, this block of the whole K/V.  Decode
+projects q on the heads of the leaves' 'model' shards (as ``param_specs``
+places ``wq``) and k and v on its KV heads (where the KV heads do not
+divide 'model', ``wk`` and ``wv`` are replicated, and it projects those
+its query heads read), gathers the three (B, H, Dh) tensors over 'model',
+writes the new K/V on the process that holds
+position ``pos``, runs the decode kernel over this process's block of the
+cache (``kv_seq``: over 'model', or every axis for ``long_500k``) with
+its log-sum-exp, merges the blocks (``collectives.merge_partials``) and
+puts this process's heads of the result through the row-parallel
+``wo``.  The reference's decode rules leave the heads whole (``heads:
+None``), but its compiled decode keeps ``wq`` placed (fsdp, model); the
+port's projections follow the placement, a deliberate difference that
+spares every process the whole projections.  Cross-attention decodes
+over this process's block of the image keys (split over 'model' where
+``img_tokens`` divides) and merges the same way.
 """
 from __future__ import annotations
 
@@ -37,7 +60,8 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.distributed import collectives as col
-from repro_torch.distributed.context import Split, tp_split
+from repro_torch.distributed.context import (TP, Split, current,
+                                            model_split, tp_split)
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_rope, normal_leaf, reduce_over,
@@ -104,42 +128,148 @@ def _project_kv(src, p, cfg: ArchConfig):
     return k, v
 
 
-def _project_qkv(x, p, cfg: ArchConfig, positions):
-    """x: (B,S,D); positions: (B or 1, S), shared by queries and keys."""
-    q = apply_rope(_project_q(x, p, cfg), positions, cfg.rope_theta)
-    k, v = _project_kv(x, p, cfg)
-    return q, apply_rope(k, positions, cfg.rope_theta), v
+def _prefill_attend(x: torch.Tensor, kv_src: Optional[torch.Tensor],
+                    p: Params, cfg: ArchConfig
+                    ) -> Tuple[torch.Tensor, Params]:
+    """Prefill attention of x (B,S,D) over ``kv_src`` (cross-attention: no
+    RoPE, not causal) or over x itself, through the flash kernel, split
+    over 'model' as the rules say (see the module's docstring); returns
+    the output and the K/V (B,T,Hkv,Dh) in the decode layout."""
+    s = x.shape[1]
+    src = x if kv_src is None else kv_src
+    heads = tp_split("heads", cfg.n_heads)
+    rows = None if heads else tp_split("qseq", s)
+    row0, s_q = rows.block(s) if rows else (0, s)
+    q = _project_q(x if rows is None else x.narrow(1, row0, s_q), p, cfg)
+    p_kv, kv_idx = _kv_heads(p, cfg, heads)
+    k, v = _project_kv(src, p_kv, cfg)
+    if kv_src is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+        q = apply_rope(q, positions[:, row0:row0 + s_q], cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    k_a, v_a = ((k, v) if kv_idx is None else
+                (k.index_select(2, kv_idx), v.index_select(2, kv_idx)))
+    # the kernel reads the (B,S,H,Dh) tensors through strides
+    out = flash_attention(q.transpose(1, 2), k_a.transpose(1, 2),
+                          v_a.transpose(1, 2),
+                          causal=kv_src is None and cfg.causal,
+                          q_offset=row0)
+    y = reduce_over(_out_proj(out.transpose(1, 2), p["wo"]), heads)
+    if rows is not None:
+        y = col.all_gather(y, 1, rows.mesh, rows.axes)
+    seq = model_split(src.shape[1])
+    return y, {"k": _every_kv_head(k, cfg, heads, seq),
+               "v": _every_kv_head(v, cfg, heads, seq)}
+
+
+def _kv_cut(cfg: ArchConfig, n: int, index: int) -> Tuple[int, int]:
+    """[lo, hi): the KV heads that the query heads of process ``index`` of
+    ``n`` read (query head h reads KV head h // g)."""
+    hq, g = cfg.n_heads // n, cfg.n_heads // cfg.n_kv_heads
+    q0 = index * hq
+    return q0 // g, (q0 + hq - 1) // g + 1
+
+
+def _every_kv_head(k: torch.Tensor, cfg: ArchConfig, heads: Optional[Split],
+                   seq: Optional[Split]) -> torch.Tensor:
+    """This process's K (or V), (B,T,H,Dh) with H its KV heads
+    (``heads``: the KV heads of its query heads; else every KV head), as
+    every KV head at this process's block of the T positions where
+    ``seq`` splits them over 'model' (prefill's cache in the decode
+    layout; a decode token's K/V with ``seq`` None).
+    Each process's heads are padded to the same count ``w`` and exchanged
+    by one all_to_all (positions to their owners), or gathered where the
+    positions are not split; then each KV head is read where it lies.
+    Outside the serving context K itself."""
+    if heads is None:
+        return k if seq is None else k.narrow(1, *seq.block(k.shape[1]))
+    n, hkv = heads.n, cfg.n_kv_heads
+    divides = hkv % n == 0
+    w = hkv // n if divides else max(
+        hi - lo for lo, hi in (_kv_cut(cfg, n, r) for r in range(n)))
+    b, t, h, dh = k.shape
+    if h < w:
+        k = torch.cat([k, k.new_zeros((b, t, w - h, dh))], dim=2)
+    if seq is not None:
+        recv = col.all_to_all(k.reshape(b, n, t // n, w, dh).transpose(0, 1),
+                              heads.mesh, TP)
+    else:
+        recv = col.all_gather(k[None], 0, heads.mesh, heads.axes)
+    recv = recv.permute(1, 2, 0, 3, 4).reshape(b, recv.shape[2], n * w, dh)
+    if divides:         # process r holds KV heads [r w, (r + 1) w)
+        return recv
+    # KV head h from the first process that holds it, r = h g // hq of the
+    # query heads' split (computed on the device: no host copy, no sync)
+    g, hq = cfg.n_heads // hkv, cfg.n_heads // n
+    kv = torch.arange(hkv, device=k.device)
+    r = kv * g // hq
+    return recv.index_select(2, r * w + kv - r * hq // g)
 
 
 def attn_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
                  ) -> Tuple[torch.Tensor, Params]:
     """Full-sequence self-attention; also returns the KV cache
     (B,T,Hkv,Dh)."""
-    s = x.shape[1]
-    positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = _project_qkv(x, p, cfg, positions)
-    # the kernel reads the (B,S,H,Dh) tensors through strides
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=cfg.causal)
-    return _out_proj(out.transpose(1, 2), p["wo"]), {"k": k, "v": v}
+    return _prefill_attend(x, None, p, cfg)
+
+
+def _gather_heads(t: torch.Tensor, sp: Optional[Split]) -> torch.Tensor:
+    """(B,1,H_local,Dh) of this process's heads → every head."""
+    return t if sp is None else col.all_gather(t, 2, sp.mesh, sp.axes)
+
+
+def _decode_over_block(q: torch.Tensor, cache: Params, pos: int,
+                       kv: Optional[Split]) -> torch.Tensor:
+    """The decode kernel over the cache block this process holds, whose
+    first position is ``kv``'s block start (0 without a split), at
+    global ``pos``; with a split the blocks' outputs are merged."""
+    k, v = cache["k"].transpose(1, 2), cache["v"].transpose(1, 2)
+    if kv is None:
+        return decode_attention(q, k, v, pos)
+    t = k.shape[2]
+    local = min(max(pos - kv.index * t, -1), t - 1)
+    out, lse = decode_attention(q, k, v, local, return_lse=True)
+    return col.merge_partials(out, lse, kv.mesh, kv.axes)
+
+
+def _heads_out(out: torch.Tensor, p: Params, heads: Optional[Split]
+               ) -> torch.Tensor:
+    """(B,Hq,Dh) of every head → (B,1,D): this process's heads through
+    its rows of ``wo``, summed over 'model'."""
+    if heads is not None:
+        hq = out.shape[1] // heads.n
+        out = out.narrow(1, heads.index * hq, hq)
+    return reduce_over(_out_proj(out[:, None], p["wo"]), heads)
 
 
 def attn_decode(x: torch.Tensor, p: Params, cfg: ArchConfig, cache: Params,
                 pos: int) -> Tuple[torch.Tensor, Params]:
     """One-token decode.  x: (B,1,D); cache k/v: (B,T,Hkv,Dh) views of the
-    period's slice of the stacked cache; ``pos`` = tokens already in the
-    cache.  The new token is written at ``pos`` and attends over
-    [0..pos]."""
+    period's slice of the stacked cache (in the serving context this
+    process's block of it); ``pos`` = tokens already in the cache.  The
+    new token is written at ``pos`` and attends over [0..pos]."""
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(x, p, cfg, positions)
+    heads = model_split(cfg.n_heads)
+    q = _gather_heads(apply_rope(_project_q(x, p, cfg), positions,
+                                 cfg.rope_theta), heads)
+    # this process's KV heads (those its query heads read where the KV
+    # heads do not divide 'model'), then every KV head
+    p_kv, _ = _kv_heads(p, cfg, heads)
+    k_new, v_new = _project_kv(x, p_kv, cfg)
+    k_new = _every_kv_head(apply_rope(k_new, positions, cfg.rope_theta), cfg,
+                           heads, None)
+    v_new = _every_kv_head(v_new, cfg, heads, None)
+    ctx = current()
+    kv = None if ctx is None else ctx.shard_split("kv_seq")
+    start = kv.index * cache["k"].shape[1] if kv else 0
     # in place, where the reference returns a new cache from
     # dynamic_update_slice: the write lands in the stacked cache itself
-    cache["k"][:, pos] = k_new[:, 0]
-    cache["v"][:, pos] = v_new[:, 0]
-    out = decode_attention(q[:, 0], cache["k"].transpose(1, 2),
-                           cache["v"].transpose(1, 2), pos)
-    return _out_proj(out[:, None], p["wo"]), cache
+    if 0 <= pos - start < cache["k"].shape[1]:
+        cache["k"][:, pos - start] = k_new[:, 0]
+        cache["v"][:, pos - start] = v_new[:, 0]
+    out = _decode_over_block(q[:, 0], cache, pos, kv)
+    return _heads_out(out, p, heads), cache
 
 
 # --------------------------------------------------------------------------
@@ -151,21 +281,20 @@ def cross_attn_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig,
     """x: (B,S,D) text; img_h: (B,Timg,D).  Returns the output and the
     static image KV cache (B,Timg,Hkv,Dh) (the reference's
     ``cross_attn_forward`` and ``cross_attn_kv``)."""
-    q = _project_q(x, p, cfg)
-    k, v = _project_kv(img_h, p, cfg)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=False)
-    return _out_proj(out.transpose(1, 2), p["wo"]), {"k": k, "v": v}
+    return _prefill_attend(x, img_h, p, cfg)
 
 
 def cross_attn_decode(x: torch.Tensor, p: Params, cfg: ArchConfig,
                       cache: Params) -> Tuple[torch.Tensor, Params]:
-    """One-token decode over every image position of the static cache,
-    which it returns unchanged."""
-    q = _project_q(x, p, cfg)
-    out = decode_attention(q[:, 0], cache["k"].transpose(1, 2),
-                           cache["v"].transpose(1, 2), cache["k"].shape[1] - 1)
-    return _out_proj(out[:, None], p["wo"]), cache
+    """One-token decode over every image position of the static cache
+    (in the serving context this process's block of them), which it
+    returns unchanged."""
+    heads = model_split(cfg.n_heads)
+    q = _gather_heads(_project_q(x, p, cfg), heads)
+    img = model_split(cfg.img_tokens)
+    pos = (1 if img is None else img.n) * cache["k"].shape[1] - 1
+    out = _decode_over_block(q[:, 0], cache, pos, img)
+    return _heads_out(out, p, heads), cache
 
 
 # --------------------------------------------------------------------------
@@ -251,7 +380,7 @@ def _kv_heads(p: Params, cfg: ArchConfig, heads: Optional[Split]):
         return p, None
     hq, g = cfg.n_heads // heads.n, cfg.n_heads // cfg.n_kv_heads
     q0 = heads.index * hq
-    lo, hi = q0 // g, (q0 + hq - 1) // g + 1
+    lo, hi = _kv_cut(cfg, heads.n, heads.index)
     cut = {k: (p[k][:, lo:hi] if k in ("wk", "wv") else p[k][lo:hi])
            for k in ("wk", "wv", "bk", "bv") if k in p}
     idx = (q0 + torch.arange(hq, device=p["wk"].device)) // g - lo

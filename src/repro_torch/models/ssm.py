@@ -16,10 +16,12 @@ Mamba's discretisation) is computed for the whole sequence or chunk
 before the loop, elementwise as the reference computes it per step.
 Every state leaf is f32 whatever the model dtype, and the xLSTM
 stabilisers ``m`` start at -1e30.  The reference's ``hint`` sharding
-annotations do nothing on one device; in the sharded train step's context
-Mamba computes its block of the inner channels where the reference's
-``inner`` rule splits them over 'model' (``mamba_prefill``), and the
-xLSTM mixers compute whole, as the reference's DP-only recurrence does.
+annotations do nothing on one device; in the sharded train step's and
+serving step's contexts Mamba computes its block of the inner channels
+where the reference's ``inner`` rule splits them (``mamba_prefill``,
+``mamba_decode``; over 'model', or for ``long_500k`` over every axis), and
+the xLSTM mixers compute whole, as the reference's DP-only recurrence
+does.
 
 Rounding follows the reference op by op in bf16, where its prefill and
 decode differ on purpose: Mamba's prefill casts the x_proj output to f32
@@ -120,6 +122,33 @@ def mamba_forward(x: torch.Tensor, p: Params, cfg: ArchConfig) -> torch.Tensor:
     return mamba_prefill(x, p, cfg)[0]
 
 
+def _inner_block(p: Params, cfg: ArchConfig):
+    """(p, inner, di): the leaves at this process's block of the inner
+    channels where the rules split them (``inner``, a ``Split``), and its
+    width.  A per-channel leaf arrives as this process's 'model' shard,
+    or whole where the rules split over several axes (``long_500k``) and
+    is cut to the block; ``x_proj`` and ``w_out`` hold its rows.
+    ``w_in`` holds u and z side by side in one leaf, so a block of its
+    columns would not be one channel block of each: it arrives whole, and
+    the process takes its channels of u and of z."""
+    di = cfg.mamba_d_inner
+    # reference ssm.py:104-105: the carries hinted "batch", "inner"
+    inner = tp_split("inner", di)
+    if inner is None:
+        return p, None, di
+    lo, n = inner.block(di)
+
+    def cut(w, dim):
+        return w.narrow(dim, lo, n) if w.shape[dim] == di else w
+    w_in = p["w_in"]
+    return {**p, "w_in": torch.cat([w_in[:, lo:lo + n],
+                                    w_in[:, di + lo:di + lo + n]], dim=1),
+            "conv_w": cut(p["conv_w"], 1), "x_proj": cut(p["x_proj"], 0),
+            "dt_proj": cut(p["dt_proj"], 1), "dt_bias": cut(p["dt_bias"], 0),
+            "A_log": cut(p["A_log"], 0), "D": cut(p["D"], 0),
+            "w_out": cut(p["w_out"], 0)}, inner, n
+
+
 def mamba_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
                   ) -> Tuple[torch.Tensor, Params]:
     """x: (B,S,D).  The in-projection, causal conv, gate projections,
@@ -127,24 +156,15 @@ def mamba_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
     carrying (ssm state, conv tail); the tail holds the last d_conv - 1
     pre-conv inputs in x's dtype.
 
-    With the inner channels split over 'model' every per-channel leaf
-    (``conv_w``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D``) holds this
-    process's channels, and so do the conv, the scan and the states;
-    ``x_proj`` and ``w_out`` hold its rows, their partial sums reduced
-    over 'model' (``x_proj``'s before dt, B and C).  ``w_in`` holds u and
-    z side by side in one leaf, so a block of its columns would not be
-    one channel block of each: the step hands it over whole, and the
-    process takes its channels of u and of z."""
+    With the inner channels split (``_inner_block``) every per-channel
+    leaf holds this process's channels, and so do the conv, the scan and
+    the states; ``x_proj`` and ``w_out`` hold its rows, their partial sums
+    reduced over the split's axes (``x_proj``'s before dt, B and C)."""
     b, s_len, _ = x.shape
-    di, ds, dc = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.mamba_d_conv
+    ds, dc = cfg.mamba_d_state, cfg.mamba_d_conv
     dtr = _dt_rank(cfg)
+    p, inner, di = _inner_block(p, cfg)
     w_in = p["w_in"]
-    # reference ssm.py:104-105: the carries hinted "batch", "inner"
-    inner = tp_split("inner", di)
-    if inner is not None:
-        lo, di = inner.block(di)
-        z0 = cfg.mamba_d_inner + lo
-        w_in = torch.cat([w_in[:, lo:lo + di], w_in[:, z0:z0 + di]], dim=1)
     a = -torch.exp(p["A_log"])                               # (Di, ds)
     dt_proj = p["dt_proj"].float()
     dt_bias = p["dt_bias"].float()
@@ -182,9 +202,13 @@ def mamba_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
 
 def mamba_decode(x: torch.Tensor, p: Params, cfg: ArchConfig, cache: Params
                  ) -> Tuple[torch.Tensor, Params]:
-    """x: (B,1,D); cache: ``ssm`` (B,Di,ds) f32, ``conv`` (B,dc-1,Di)."""
-    di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
+    """x: (B,1,D); cache: ``ssm`` (B,Di,ds) f32, ``conv`` (B,dc-1,Di), of
+    this process's block of the channels where they are split
+    (``_inner_block``; the projections' partial sums reduced as in
+    ``mamba_prefill``)."""
+    ds = cfg.mamba_d_state
     dtr = _dt_rank(cfg)
+    p, inner, di = _inner_block(p, cfg)
     xz = (x @ p["w_in"])[:, 0]                               # (B, 2Di)
     u_new, z = xz[:, :di], xz[:, di:]
     # conv over the (dc-1) cached inputs + current, as a dot: products
@@ -192,7 +216,7 @@ def mamba_decode(x: torch.Tensor, p: Params, cfg: ArchConfig, cache: Params
     window = torch.cat([cache["conv"], u_new[:, None]], dim=1)  # (B,dc,Di)
     u = (window.float() * p["conv_w"].float()).sum(dim=1).to(x.dtype)
     u = F.silu(u)
-    proj = u @ p["x_proj"]
+    proj = reduce_over(u @ p["x_proj"], inner)
     dt_in, b_t, c_t = proj[:, :dtr], proj[:, dtr:dtr + ds], proj[:, dtr + ds:]
     dt = F.softplus(dt_in @ p["dt_proj"] + p["dt_bias"].float())
     a = -torch.exp(p["A_log"])
@@ -201,7 +225,8 @@ def mamba_decode(x: torch.Tensor, p: Params, cfg: ArchConfig, cache: Params
     s = da * cache["ssm"] + (dt * uf)[..., None] * b_t.float()[:, None, :]
     y = torch.einsum("bis,bs->bi", s, c_t.float()) + uf * p["D"]
     y = (y.to(x.dtype) * F.silu(z))[:, None]                 # (B,1,Di)
-    return y @ p["w_out"], {"ssm": s, "conv": window[:, 1:]}
+    return (reduce_over(y @ p["w_out"], inner),
+            {"ssm": s, "conv": window[:, 1:]})
 
 
 # ==========================================================================

@@ -31,7 +31,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs import ArchConfig
-from repro_torch.distributed.context import current, tp_split, use_ctx
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.context import Split, current, tp_split, use_ctx
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
@@ -278,9 +279,7 @@ def train_loss(params: Params, batch: Dict[str, torch.Tensor],
     the step splits) just before its use: the top-level leaves
     once (path ``""``), each period's slot leaves inside the period's remat
     region (path ``"slots"``), so one period at a time is whole."""
-    if gather is not None:
-        params = {**gather({k: v for k, v in params.items() if k != "slots"},
-                           ""), "slots": params["slots"]}
+    params = _top_level(params, gather)
     h, img_h = _embed_inputs(params, cfg, batch)
     h, aux = _train_stack(params, h, cfg, img_h, remat, gather)
     h = apply_norm(h, params["final_norm"], cfg)
@@ -298,14 +297,37 @@ def train_loss(params: Params, batch: Dict[str, torch.Tensor],
     return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 
-def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
-            ) -> Tuple[torch.Tensor, Cache]:
+def _whole_vocab(logits: torch.Tensor, sp: Optional[Split]) -> torch.Tensor:
+    """Logits of every vocabulary entry: this process's block (a split
+    vocabulary) gathered over 'model', else ``logits`` itself."""
+    if sp is None:
+        return logits
+    return col.all_gather(logits, logits.dim() - 1, sp.mesh, sp.axes)
+
+
+def _top_level(params: Params, gather: Optional[Callable]) -> Params:
+    """``params`` with its top-level leaves gathered (see ``train_loss``)."""
+    if gather is None:
+        return params
+    return {**gather({k: v for k, v in params.items() if k != "slots"}, ""),
+            "slots": params["slots"]}
+
+
+def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            gather: Optional[Callable] = None) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence forward producing last-position logits + cache; for
-    frame inputs (encoder-only) logits at every position and no cache."""
+    frame inputs (encoder-only) logits at every position and no cache.
+    ``gather`` (the sharded serving step's) makes local shards whole but
+    for what the step splits, as in ``train_loss``: the top-level leaves
+    once, each period's just before it runs; the logits of a vocabulary
+    split over 'model' are gathered whole."""
+    params = _top_level(params, gather)
     h, img_h = _embed_inputs(params, cfg, batch)
     per_period = []
     for p_idx in range(cfg.n_periods):
         slots = period_params(params["slots"], p_idx)
+        if gather is not None:
+            slots = gather(slots, "slots")
         new_cache = {}
         for i in range(cfg.period):
             h, nc, _ = _apply_block(i, h, slots[f"slot{i}"], cfg,
@@ -313,9 +335,11 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
             new_cache[f"slot{i}"] = nc
         per_period.append(new_cache)
     h = apply_norm(h, params["final_norm"], cfg)
+    vocab = tp_split("vocab", cfg.vocab_size)
     if cfg.embedding_inputs:      # encoder-only: every position, no cache
-        return h @ params["lm_head"]["w"], {}
-    return unembed(h[:, -1:], params, cfg), stack_periods(per_period)
+        return _whole_vocab(h @ params["lm_head"]["w"], vocab), {}
+    return (_whole_vocab(unembed(h[:, -1:], params, cfg), vocab),
+            stack_periods(per_period))
 
 
 def stack_periods(per_period: list) -> Cache:
@@ -326,15 +350,21 @@ def stack_periods(per_period: list) -> Cache:
 
 
 def decode_step(params: Params, cache: Cache, tokens: torch.Tensor, pos: int,
-                cfg: ArchConfig) -> Tuple[torch.Tensor, Cache]:
+                cfg: ArchConfig, gather: Optional[Callable] = None
+                ) -> Tuple[torch.Tensor, Cache]:
     """One-token decode.  tokens: (B,1) integer; pos: number of tokens
     already in the KV cache (host int).  Updates ``cache`` in place:
     attention writes into it, cross-attention's image K/V stay as they
     are, and a recurrent slot's new state (a new tensor) is copied over
-    its period's slice."""
-    h = embed_tokens(tokens, params["embed"])
+    its period's slice.  ``gather``: as in ``prefill``; the cache is then
+    this process's blocks of it."""
+    params = _top_level(params, gather)
+    vocab = tp_split("vocab", cfg.vocab_size)
+    h = embed_tokens(tokens, params["embed"], vocab)
     for p_idx in range(cfg.n_periods):
         slots = period_params(params["slots"], p_idx)
+        if gather is not None:
+            slots = gather(slots, "slots")
         for i, (mixer, _) in enumerate(cfg.block_pattern):
             name = f"slot{i}"
             period_cache = {k: c[p_idx] for k, c in cache[name].items()}
@@ -344,7 +374,7 @@ def decode_step(params: Params, cache: Cache, tokens: torch.Tensor, pos: int,
                 for k, v in new_state.items():
                     period_cache[k].copy_(v)
     h = apply_norm(h, params["final_norm"], cfg)
-    return unembed(h, params, cfg), cache
+    return _whole_vocab(unembed(h, params, cfg), vocab), cache
 
 
 # ==========================================================================

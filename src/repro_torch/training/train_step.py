@@ -37,12 +37,13 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import ArchConfig
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.context import Mesh, ShardCtx, current, use_ctx
+from repro_torch.distributed.gather import gatherer
 from repro_torch.models import transformer
 from repro_torch.models.transformer import tree_leaves, tree_map, tree_unflatten
 from repro_torch.params import resolve_device
@@ -137,63 +138,6 @@ def _row_axes(mesh, rows: int) -> Tuple[str, ...]:
     return fsdp if fsdp and rows % shd.axis_size(mesh, fsdp) == 0 else ()
 
 
-# the logical name the rules split each kind of leaf over, for the leaves
-# the model computes on as their 'model' shards (``context.tp_split``):
-# the top-level subtrees, then a slot's mixer and ffn by kind.  Mamba's
-# ``w_in`` holds u and z side by side and reaches ``mamba_prefill`` whole;
-# the xLSTM mixers compute whole, as the reference's DP-only recurrence
-_TP_LEAVES = {"embed": "vocab", "lm_head": "vocab", "attn": "heads",
-              "cross_attn": "heads", "mlp": "ff", "mamba": "inner"}
-
-
-def _gatherer(cfg: ArchConfig, place, ctx: ShardCtx) -> Callable:
-    """``train_loss``'s ``gather`` for local shards placed as ``place``:
-    each leaf made whole by a differentiable all-gather over the mesh
-    dims that shard it, except over 'model' for a leaf of
-    ``_TP_LEAVES`` whose logical name ``ctx``'s rules split over 'model'
-    (the model computes on that shard), and an MoE feed-forward's leaves,
-    which stay DTensors (their shards) for ``moe.apply_moe``'s
-    expert-parallel paths.  A period's leaves are placed as their stacked
-    leaf, one dimension down (the period axis is never sharded)."""
-    dm = ctx.mesh.device_mesh
-    names = list(dm.mesh_dim_names)
-    tp = names.index(shd.TP) if shd.TP in names else None
-
-    def per_period(pl):
-        if any(p.is_shard(0) for p in pl):
-            raise ValueError(f"a stacked leaf is sharded over periods: {pl}")
-        return [Shard(p.dim - 1) if p.is_shard() else p for p in pl]
-
-    def whole(x, pl, kind, leaf):
-        if (tp is not None and ctx.splits(_TP_LEAVES.get(kind, ""))
-                and (kind, leaf) != ("mamba", "w_in")):
-            pl = [Replicate() if i == tp else p for i, p in enumerate(pl)]
-        return col.make_whole(x, pl, dm)
-
-    def gather(tree, path):
-        if path == "":
-            return {k: {leaf: whole(x, place[k][leaf], k, leaf)
-                        for leaf, x in sub.items()} for k, sub in tree.items()}
-        out = {}
-        for slot, sub in tree.items():
-            mixer, ffn = cfg.block_pattern[int(slot[len("slot"):])]
-            out[slot] = {}
-            for key, leaves in sub.items():
-                kind = {"mixer": mixer, "ffn": ffn}.get(key, key)
-                pl = place["slots"][slot][key]
-                if kind == "moe":
-                    out[slot][key] = {leaf: DTensor.from_local(
-                        x, dm, per_period(pl[leaf]), run_check=False)
-                        for leaf, x in leaves.items()}
-                else:
-                    out[slot][key] = {
-                        leaf: whole(x, per_period(pl[leaf]), kind, leaf)
-                        for leaf, x in leaves.items()}
-        return out
-
-    return gather
-
-
 def _sharded_grad(params, batch, cfg: ArchConfig, tcfg: TrainConfig,
                   accumulate: Callable):
     """The step's gradient on DTensor parameters, computed on local shards
@@ -239,7 +183,7 @@ def _sharded_grad(params, batch, cfg: ArchConfig, tcfg: TrainConfig,
     step_ctx = ShardCtx(mesh, rules, row_axes, tp=True)
     with use_ctx(step_ctx):
         loss, parts, grads = accumulate(local, mine,
-                                        _gatherer(cfg, place, step_ctx))
+                                        gatherer(cfg, place, step_ctx))
 
     n = mesh.devices.size
     out = []

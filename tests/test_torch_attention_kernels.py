@@ -141,8 +141,10 @@ def test_flash_takes_head_width_80_and_names_its_widths():
 
 
 def test_decode_rejects_pos_outside_cache():
+    """A host pos must lie in [-1, T): -1 is a block of a split cache
+    that holds no key for the token."""
     q, k, v = _inputs()
-    for pos in (-1, 8):
+    for pos in (-2, 8):
         with pytest.raises(ValueError):
             decode_attention(q[:, :, 0], k, v, pos)
 
@@ -160,12 +162,12 @@ def test_decode_rejects_bad_pos_tensor(dtype, shape, device):
 
 def test_decode_tensor_pos_is_clamped_to_the_cache():
     """No value of a tensor ``pos`` reads outside the cache: it is clamped
-    to [0, T), as the kernel clamps it on the card."""
+    to [-1, T), as the kernel clamps it on the card (-1: no key, zeros)."""
     rng = np.random.default_rng(4)
     q = torch.from_numpy(rng.standard_normal((1, 4, 16)).astype(np.float32))
     k, v = (torch.from_numpy(rng.standard_normal((1, 2, 8, 16)).astype(
         np.float32)) for _ in range(2))
-    for pos, clamped in ((-5, 0), (8, 7), (1000, 7)):
+    for pos, clamped in ((-5, -1), (8, 7), (1000, 7)):
         out = decode_attention(q, k, v, torch.tensor(pos, dtype=torch.int32))
         assert torch.equal(out, decode_attention(q, k, v, clamped))
 
