@@ -141,7 +141,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
     command line on fake tensors of the card (16x16 mesh, the kernels
     through their fake implementations), each in a subprocess: each ok,
     FLOPs per device over the analytic count (the first two within
-    0.9-1.3, and fitting 80 GB), collective bytes by kind, peak.
+    0.9-1.3, and fitting 80 GB), collective bytes by kind, peak;
+16. the serving examples (``examples``; ``repro_torch.examples``): (a)
+    ``quickstart --full`` in bf16, 8 requests on full-width olmo-1b and
+    qwen3-8b with ``obs/``'s span tracer, telemetry and SLO monitor
+    attached: run spans that never overlap on a device, every lifecycle
+    closed, the Perfetto JSON under ``build/examples``, the telemetry
+    totals and SLO alerts (the engine's virtual clock of the H100 model);
+    (b) ``multi_npu_cluster --full``'s two-device engine on the same
+    weights and requests, each request's tokens bit for bit (a)'s; (c)
+    ``multi_tenant_serving`` at its tiny configs in f32 (the H100 model,
+    then the paper's NPU model, where PREMA preempts), tokens identical
+    across NP-FCFS and PREMA; each run's launches checked against its
+    step counts.
 
 Each serving phase also holds its profiled prefill's device time against
 CUDA events around the same prefill.  Then a ``{"kernels": [...]}`` line
@@ -781,20 +793,33 @@ def _capture_final_logits(executor, reqs, final: dict) -> None:
 
 
 def _check_launches(cfg, dtype, counts, where):
-    """Prefill launches all on the flash kernel of this dtype and head
-    width, none on the other, once per self- or cross-attention block and
-    period; decode once per such block and step; an encoder-only model
-    never decodes."""
+    """``_check_models_launches`` for one model, which decodes unless it is
+    encoder-only."""
+    if (counts["decode"] == 0) != cfg.encoder_only:
+        raise SystemExit(f"{where}: step counts {counts} for "
+                         f"{'an encoder-only' if cfg.encoder_only else 'a'} "
+                         "model")
+    return _check_models_launches({cfg.name: cfg}, dtype,
+                                  {cfg.name: counts}, where)
+
+
+def _check_models_launches(cfgs: dict, dtype, counts: dict, where: str):
+    """Prefill launches all on the flash kernel of this dtype and each
+    model's head width, none on the other, once per self- or
+    cross-attention block and period; decode once per such block and
+    step; ``counts`` holds each model's steps (by its name in ``cfgs``),
+    every model prefilled."""
     from repro_torch.kernels.flash_attention.ops import kernel_variant
-    attn_slots = sum(m in ("attn", "cross_attn") for m, _ in cfg.block_pattern)
-    flash = f"flash_attention/{kernel_variant(dtype, cfg.d_head)}"
-    expect = {**_no_launches(),
-              flash: counts["prefill"] * attn_slots,
-              "decode_attention": counts["decode"] * attn_slots
-              * cfg.n_periods}
+    expect = _no_launches()
+    for name, c in counts.items():
+        cfg = cfgs[name]
+        attn = sum(m in ("attn", "cross_attn") for m, _ in cfg.block_pattern)
+        expect[f"flash_attention/{kernel_variant(dtype, cfg.d_head)}"] += (
+            c["prefill"] * attn)
+        expect["decode_attention"] += c["decode"] * attn * cfg.n_periods
     got = _launches()
-    if (got != expect or counts["prefill"] == 0
-            or (counts["decode"] == 0) != cfg.encoder_only):
+    if (got != expect or set(counts) != set(cfgs)
+            or not all(c["prefill"] for c in counts.values())):
         raise SystemExit(f"{where}: kernel launches {got}, expected {expect} "
                          f"from step counts {counts}")
     copies = _counters()["decode_attention"].layout_copies
@@ -2462,6 +2487,219 @@ def phase_serve_sharded(card: str):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 16: the serving examples, with obs/ attached
+# --------------------------------------------------------------------------
+@contextlib.contextmanager
+def counted_steps(counts: dict):
+    """While open, every executor's prefill and decode steps are counted in
+    ``counts[model name]`` (the engines the examples make are out of
+    reach before they run)."""
+    from repro_torch.serving import PreemptibleExecutor as Ex
+    saved = {k: getattr(Ex, k) for k in ("step_prefill", "step_decode")}
+
+    def counted(kind, fn):
+        def step(self, st):
+            counts.setdefault(self.cfg.name, {"prefill": 0, "decode": 0})[
+                kind] += 1
+            return fn(self, st)
+        return step
+    try:
+        for k, fn in saved.items():
+            setattr(Ex, k, counted(k.split("_")[1], fn))
+        yield counts
+    finally:
+        for k, fn in saved.items():
+            setattr(Ex, k, fn)
+
+
+def _spans_check(tracer, rids) -> dict:
+    """Run spans never overlap on a device (or batch slot), as
+    tests/test_obs_property.py's ``assert_no_overlap`` holds them, and
+    every request's lifecycle closes in ``complete``."""
+    spans = tracer.spans
+    runs = {}
+    for sp in spans:
+        if sp.phase == "run":
+            runs.setdefault((sp.device, sp.slot), []).append((sp.t0, sp.t1))
+    overlaps = 0
+    for track in runs.values():
+        track.sort()
+        overlaps += sum(b0 < a1 - 1e-12 for (_, a1), (b0, _) in
+                        zip(track, track[1:]))
+    last = {}
+    for sp in spans:
+        if sp.tid not in last or sp.t1 >= last[sp.tid].t1:
+            last[sp.tid] = sp
+    closed = (sorted(last) == sorted(rids)
+              and all(sp.reason == "complete" for sp in last.values())
+              and not any(sp.reason == "open" for sp in spans))
+    if overlaps or not runs or not closed:
+        raise SystemExit(f"spans: {overlaps} overlaps on {len(runs)} tracks, "
+                         f"lifecycles closed {closed}")
+    return dict(spans=len(spans), run_spans=sum(map(len, runs.values())),
+                tracks=len(runs), overlaps=overlaps, lifecycles_closed=closed,
+                reasons={r: sum(sp.reason == r for sp in spans)
+                         for r in sorted({sp.reason for sp in spans})})
+
+
+# the engine summary's keys the example lines keep
+SUMMARY_KEYS = ("antt", "stp", "fairness", "tail95_high", "sla_met_rate",
+                "preemptions", "kills", "mean_ttft", "p95_ttft", "mean_tpot",
+                "migrations", "util_mean")
+
+
+def _summary(engine) -> dict:
+    return {k: float(v) for k, v in engine.summary().items()
+            if k in SUMMARY_KEYS}
+
+
+def _sum_launches(*runs) -> dict:
+    total = _no_launches()
+    for got in runs:
+        for k, n in got.items():
+            total[k] += n
+    return total
+
+
+def phase_examples(card: str):
+    """(a) ``repro_torch.examples.quickstart --full`` in bf16: its 8
+    requests on full-width olmo-1b and qwen3-8b (the wgmma flash kernel,
+    decode at groups 1 and 4), with ``obs/``'s SpanTracer, Telemetry and
+    SLOMonitor attached (``quickstart.observe``): spans that never overlap
+    on a device, every lifecycle closed, the Perfetto JSON written under
+    ``build/``, the telemetry totals and the SLO alerts, all on the
+    engine's virtual clock of the H100 model; (b) ``multi_npu_cluster
+    --full``'s two-device engine on the same models and requests (both
+    engine devices on this card, sharing its tensors): every request's
+    tokens bit for bit (a)'s, with its migrations; (c)
+    ``multi_tenant_serving`` at its tiny configs in f32, as on the card by
+    default (the H100 model) and under the paper's NPU model, where PREMA
+    preempts: its own check, tokens identical across NP-FCFS and PREMA.
+    Each run's kernel launches are checked against its step counts."""
+    from repro_torch.examples import (multi_npu_cluster, multi_tenant_serving,
+                                      quickstart)
+    from repro_torch.hw import H100, PAPER_NPU
+    from repro_torch.models.transformer import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    out = ROOT / "build" / "examples"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    virtual = "engine virtual clock of the H100 hardware model, not measured"
+    t0 = time.perf_counter()
+    models = quickstart.build_models("cuda", torch.bfloat16, full=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfgs = {m.cfg.name: m.cfg for m, _ in models.values()}
+    weights = sum(x.nbytes for _, p in models.values()
+                  for x in tree_leaves(p))
+
+    # (a) quickstart --full under obs/
+    observers, counts = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    with counted_steps(counts):
+        t0 = time.perf_counter()
+        engine, results = quickstart.run(
+            models, quickstart.make_requests(),
+            attach=lambda e, r: observers.extend(quickstart.observe(e, r)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches_a = _check_models_launches(cfgs, torch.bfloat16, counts,
+                                       "quickstart --full")
+    tracer, telemetry, slo = observers
+    for o in observers:
+        o.detach()
+    tokens = {r.rid: r.tokens for r in results}
+    spans = _spans_check(tracer, list(tokens))
+    trace = Path(tracer.export(str(out / "quickstart_trace.json")))
+    events = json.loads(trace.read_text())["traceEvents"]
+    snap = telemetry.snapshot()
+    totals = snap["totals"]
+    if (len(results) != 8 or not events
+            or not totals["submit"] == totals["complete"] == 8
+            or not all(np.isfinite(float(r.ntt)) and r.tokens.shape[1] >= 1
+                       for r in results)):
+        raise SystemExit(f"quickstart --full: {len(results)} results, "
+                         f"{len(events)} trace events, totals {totals}")
+    generated = sum(int(r.tokens.shape[1]) for r in results)
+    emit("examples_quickstart", card=card, models=list(cfgs), dtype="bfloat16",
+         weights_gb=weights / 1e9, param_init_s=init_s, wall_s=wall,
+         generated_tokens=generated, tokens_per_s=generated / wall,
+         preemptions=sum(r.n_preemptions for r in results),
+         kills=sum(r.n_kills for r in results), steps=counts,
+         launches={k: n for k, n in launches_a.items() if n},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("examples_obs", note=virtual, **spans, n_events=tracer.n_events,
+         busy_s=tracer.device_busy_seconds(), trace_file=str(
+             trace.relative_to(ROOT)), trace_bytes=trace.stat().st_size,
+         trace_events=len(events), telemetry_windows=len(snap["windows"]),
+         telemetry_window_s=snap["window"], telemetry_totals=totals,
+         slo_alerts=[list(a) for a in slo.alerts], slo=slo.snapshot(),
+         summary=_summary(engine))
+
+    # (b) the two-device engine on the same models and requests
+    multi_npu_cluster.simulate_cluster()
+    counts = {}
+    _reset_launches()
+    with counted_steps(counts):
+        t0 = time.perf_counter()
+        engine2, results2 = multi_npu_cluster.serve_on_two_devices(models)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    launches_b = _check_models_launches(cfgs, torch.bfloat16, counts,
+                                       "multi_npu_cluster --full")
+    same = {r.rid: bool(np.array_equal(r.tokens, tokens[r.rid]))
+            for r in results2}
+    devices = {t.tid: t.device for t in engine2.tasks}
+    s2 = engine2.summary()
+    emit("examples_two_devices", card=card, wall_s=wall2, steps=counts,
+         launches={k: n for k, n in launches_b.items() if n},
+         tokens_equal_quickstart=all(same.values()), devices=devices,
+         migrations=float(s2["migrations"]),
+         preemptions=sum(r.n_preemptions for r in results2), note=virtual,
+         summary=_summary(engine2))
+    if len(same) != 8 or not all(same.values()) or len(set(
+            devices.values())) != 2:
+        raise SystemExit(f"two devices: tokens equal {same}, devices "
+                         f"{devices}")
+    del models, engine, engine2, results, results2, observers, tracer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the multi-tenant comparison at its tiny configs in f32
+    models = multi_tenant_serving.build_models("cuda", torch.float32)
+    cfgs = {m.cfg.name: m.cfg for m, _ in models.values()}
+    reqs = multi_tenant_serving.make_trace(models, np.random.default_rng(7))
+    launches_c = []
+    for hw_name, hw in (("H100", H100), ("PAPER_NPU", PAPER_NPU)):
+        counts = {}
+        _reset_launches()
+        with counted_steps(counts):
+            t0 = time.perf_counter()
+            fcfs, prema = multi_tenant_serving.compare(models, reqs, hw)
+            torch.cuda.synchronize()
+            wall3 = time.perf_counter() - t0
+        launches_c.append(_check_models_launches(
+            cfgs, torch.float32, counts, f"multi_tenant_serving {hw_name}"))
+        emit("examples_multi_tenant", card=card, hw_model=hw_name,
+             dtype="float32", wall_s=wall3, steps=counts,
+             launches={k: n for k, n in launches_c[-1].items() if n},
+             tokens_identical_across_schedulers=True,
+             preemptions=float(prema.summary()["preemptions"]),
+             note=f"summaries: engine virtual clock of the {hw_name} "
+                  "hardware model, not measured",
+             fcfs=_summary(fcfs), prema=_summary(prema))
+    if not prema.summary()["preemptions"]:
+        raise SystemExit("multi_tenant_serving: PREMA never preempted under "
+                         "the paper's NPU model")
+    return _sum_launches(launches_a, launches_b, *launches_c)
+
+
 # the kernels whose compiled code phase 1 reports: name -> a pattern of
 # its mangled name (the decode kernel at bf16, D 128, groups up to 4; the
 # CUDA-core GEMM on its 16-byte path, and flash at f32, D 128)
@@ -2507,7 +2745,7 @@ def compiled_kernels(lib_path: Path):
 
 PHASES = ("kernels", "gemm", "tiny", "serve", "serve_f32", "path",
           "serve_moe", "serve_dense", "serve_ssm", "serve_vlm_audio", "train",
-          "distributed", "dryrun", "serve_sharded")
+          "distributed", "dryrun", "serve_sharded", "examples")
 # the kernels line: name, launch counter, source, TPU kernel, headline row
 KERNELS = [
     ("flash_attention_wgmma_bf16", "flash_attention/wgmma",
@@ -2626,7 +2864,8 @@ def main(argv=None) -> int:
              ("serve_ssm", phase_serve_ssm),
              ("serve_vlm_audio", phase_serve_vlm_audio),
              ("train", phase_train), ("distributed", phase_distributed),
-             ("dryrun", phase_dryrun), ("serve_sharded", phase_serve_sharded)]
+             ("dryrun", phase_dryrun), ("serve_sharded", phase_serve_sharded),
+             ("examples", phase_examples)]
     for phase, run in paths:
         if phase in phases:
             t0 = time.perf_counter()

@@ -18,6 +18,7 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from repro_torch.configs import ArchConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.hw import H100
+from repro_torch.models import transformer
 from repro_torch.models.transformer import tree_leaves
 
 
@@ -81,6 +82,33 @@ def state_placements(state, cfg: ArchConfig, mesh):
         out["opt"] = {k: (p_pl if k in ("m", "v", "err") else None)
                       for k in state["opt"]}
     return out
+
+
+def placer(cfg: ArchConfig, mesh, dtype: torch.dtype = torch.float32):
+    """A ``place`` for ``init_params``/``init_train_state``: each leaf, as
+    it is drawn, becomes a DTensor on ``mesh`` with its
+    ``param_placements``.  Every process draws the same whole leaf from
+    the same seeded generator and keeps its own shard, cloned so that no
+    view keeps the whole storage alive: no collective, and the shards are
+    bit for bit those that ``reshard`` cuts from the whole state.  The
+    k-th leaf drawn takes the placements of the k-th leaf that the same
+    init draws on the meta device."""
+    drawn = []
+    shapes = transformer.init_params(
+        cfg, generator=torch.Generator(), dtype=dtype, device="meta",
+        place=lambda x: drawn.append(x) or x)
+    where = {}
+    shd.map2(lambda x, pl: where.setdefault(id(x), pl), shapes,
+             shd.param_placements(shapes, cfg, mesh))
+    order = iter([where[id(x)] for x in drawn])
+    dm = mesh.device_mesh
+
+    def place(x):
+        d = distribute_tensor(x, dm, next(order), src_data_rank=None)
+        return DTensor.from_local(d.to_local().clone(), dm, d.placements,
+                                  run_check=False, shape=d.shape,
+                                  stride=d.stride())
+    return place
 
 
 def distribute(tree, place, mesh):

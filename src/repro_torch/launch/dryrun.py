@@ -56,9 +56,14 @@ takes it), ``output`` those of what it returns, ``peak`` ``MemTracker``'s
 peak over the step with the arguments tracked, ``temp`` ``peak -
 argument``; ``fits_hbm`` is held to one H100's 80 GB.
 
+``init_memory`` (``--init-memory DATA MODEL``) reckons the launcher's
+seeded init the same way: its peak on one rank of a fake mesh, placed
+leaf by leaf, beside the whole state drawn and then resharded.
+
 Usage (on a machine with CUDA; add ``--device cpu`` elsewhere):
     python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k --mesh single
     python -m repro_torch.launch.dryrun --all --out results/dryrun_torch.json
+    python -m repro_torch.launch.dryrun --arch qwen3-8b --init-memory 1 4
 """
 from __future__ import annotations
 
@@ -91,7 +96,8 @@ from repro_torch.launch.op_count import counting, nbytes
 from repro_torch.models import transformer
 from repro_torch.models.transformer import tree_map
 from repro_torch.training.optimizer import OptConfig, init_opt_state
-from repro_torch.training.train_step import TrainConfig, make_train_step
+from repro_torch.training.train_step import (TrainConfig, init_train_state,
+                                             make_train_step)
 
 HBM_PER_CHIP = H100.hbm_bytes
 
@@ -378,6 +384,43 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     return result
 
 
+def init_memory(arch: str, mesh_shape: Sequence[int] = (1, 4), *,
+                sharded: bool = True, device="cuda") -> Dict[str, float]:
+    """The launcher's seeded init of full-width ``arch`` (f32, a default
+    ``TrainConfig``) on rank 0 of a fake ("data", "model") mesh of
+    ``mesh_shape``, on fake tensors of ``device``: ``MemTracker``'s peak
+    over the init, and this rank's state bytes (``local``) once it is done.
+    ``sharded`` is the launcher's init, each leaf placed as it is drawn;
+    without it the init draws the whole state, then ``elastic.reshard``
+    cuts this rank's shards from it.  Also the whole state's bytes and the
+    largest whole leaf's, from the meta device."""
+    cfg = configs.get_config(arch)
+    tcfg = TrainConfig()
+    meta = init_train_state(cfg, tcfg, generator=torch.Generator(),
+                            device="meta")
+    leaves = [x.nbytes for x in transformer.tree_leaves(list(meta))]
+    with fake_mesh(mesh_shape, ("data", "model"), device) as mesh, \
+            FakeTensorMode(allow_non_fake_inputs=True):
+        place = elastic.placer(cfg, mesh) if sharded else None
+        tracker = MemTracker()
+        with tracker:
+            gen = torch.Generator(device=device).manual_seed(0)
+            params, opt = init_train_state(cfg, tcfg, generator=gen,
+                                           device=device, place=place)
+            state = {"params": params, "opt": opt}
+            if not sharded:
+                state = elastic.reshard(state, cfg, mesh)
+            del params, opt
+        dev = torch.device(device).type
+        peak = sum(snap["Total"] for d, snap in
+                   tracker.get_tracker_snapshot("peak").items()
+                   if d.type == dev)
+        local = nbytes(state)
+    return {"arch": arch, "mesh": list(mesh_shape), "sharded": sharded,
+            "peak": peak, "local": local, "whole": sum(leaves),
+            "largest_leaf": max(leaves)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -393,7 +436,17 @@ def main(argv=None):
                          "card's path, the kernels through their fake "
                          "implementations; cpu the plain path)")
     ap.add_argument("--out", default="results/dryrun_torch.json")
+    ap.add_argument("--init-memory", type=int, nargs=2, default=None,
+                    metavar=("DATA", "MODEL"),
+                    help="reckon the launcher's init of full-width --arch "
+                         "on a fake mesh of this shape (print one JSON "
+                         "line, sharded and whole-then-reshard; no --out)")
     args = ap.parse_args(argv)
+    if args.init_memory:
+        print(json.dumps({"init_memory": [
+            init_memory(args.arch, args.init_memory, sharded=sharded,
+                        device=args.device) for sharded in (True, False)]}))
+        return
 
     if args.all:
         archs = configs.ARCH_NAMES

@@ -133,17 +133,20 @@ def restore(run: Run, ckpt_dir: str, step: Optional[int] = None):
 def init_or_resume(run: Run, args: argparse.Namespace):
     """(start step, state): the newest checkpoint in ``--ckpt-dir``, else a
     seeded init, distributed onto the run's mesh; the state is
-    ``{"params", "opt"}``, as a checkpoint holds it."""
+    ``{"params", "opt"}``, as a checkpoint holds it.  The init places each
+    leaf as it is drawn (``elastic.placer``) and makes the moments as
+    shards, so no process holds more than its shards and one whole
+    leaf."""
     if args.ckpt_dir and checkpoint.latest_step(args.ckpt_dir):
         start, state = restore(run, args.ckpt_dir)
         _print(f"elastic-resumed step {start} onto "
                f"{run.mesh.devices.size}-device mesh")
         return start, state
     gen = torch.Generator(device=run.device).manual_seed(args.seed)
-    params, opt = init_train_state(run.cfg, run.tcfg, generator=gen,
-                                   dtype=run.dtype, device=run.device)
-    return 0, elastic.reshard({"params": params, "opt": opt}, run.cfg,
-                              run.mesh)
+    params, opt = init_train_state(
+        run.cfg, run.tcfg, generator=gen, dtype=run.dtype, device=run.device,
+        place=elastic.placer(run.cfg, run.mesh, run.dtype))
+    return 0, {"params": params, "opt": opt}
 
 
 def train(run: Run, args: argparse.Namespace, state: dict, start: int,

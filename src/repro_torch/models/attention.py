@@ -64,8 +64,8 @@ from repro_torch.distributed.context import (TP, Split, current,
                                             model_split, tp_split)
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import (apply_rope, normal_leaf, reduce_over,
-                                       rms_norm_head, stacked)
+from repro_torch.models.layers import (apply_rope, leaf, normal_leaf,
+                                       reduce_over, rms_norm_head, stacked)
 
 Params = dict
 NEG_INF = -1e30
@@ -88,12 +88,13 @@ def init_attn(cfg: ArchConfig, gen: torch.Generator, n: Optional[int], dtype,
                           device),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros(stacked(n, (hq, dh)), dtype=dtype, device=device)
-        p["bk"] = torch.zeros(stacked(n, (hkv, dh)), dtype=dtype, device=device)
-        p["bv"] = torch.zeros(stacked(n, (hkv, dh)), dtype=dtype, device=device)
+        for name, h in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+            p[name] = leaf(torch.zeros(stacked(n, (h, dh)), dtype=dtype,
+                                       device=device))
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones(stacked(n, (dh,)), dtype=dtype, device=device)
-        p["k_norm"] = torch.ones(stacked(n, (dh,)), dtype=dtype, device=device)
+        for name in ("q_norm", "k_norm"):
+            p[name] = leaf(torch.ones(stacked(n, (dh,)), dtype=dtype,
+                                      device=device))
     return p
 
 

@@ -4,7 +4,9 @@ functions on tensors over dicts of tensors.
 Initialisers take an explicit ``torch.Generator`` and a leading period
 count ``n`` (``None`` for unstacked leaves); stacked leaves are filled one
 period at a time so a full-size model never holds an f32 copy of all its
-weights.  The random bits differ from ``jax.random``; the tests share
+weights.  Every leaf an initialiser makes passes through ``leaf`` as it is
+made: under ``placing`` it is placed (a process's shard, say) before the
+next one is drawn.  The random bits differ from ``jax.random``; the tests share
 weights through ``repro_torch.params.params_from_numpy`` instead.
 
 In the sharded train step's context the MLP, the embedding and the
@@ -16,6 +18,8 @@ rows, and the cross-entropy combines the local log-sums.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -35,6 +39,30 @@ def stacked(n: Optional[int], shape: Sequence[int]) -> tuple:
     return tuple(shape) if n is None else (n, *shape)
 
 
+_tls = threading.local()    # ``place``: this thread's open ``placing`` hook
+
+
+@contextlib.contextmanager
+def placing(place: Optional[Callable]):
+    """While open, each leaf an initialiser makes on this thread goes
+    through ``place`` as soon as it is made, in drawing order, and the
+    initialiser keeps what ``place`` returns, so the whole leaf can be
+    freed before the next is drawn.  None places nothing."""
+    outer = getattr(_tls, "place", None)
+    _tls.place = place
+    try:
+        yield
+    finally:
+        _tls.place = outer
+
+
+def leaf(x: torch.Tensor):
+    """``x``, a parameter leaf just made, through the open ``placing``
+    hook."""
+    place = getattr(_tls, "place", None)
+    return x if place is None else place(x)
+
+
 def normal_leaf(gen: torch.Generator, n: Optional[int], shape: Sequence[int],
                 std: float, dtype: torch.dtype, device) -> torch.Tensor:
     """N(0, std²) leaf of ``shape``, stacked over ``n`` periods when ``n``
@@ -44,11 +72,11 @@ def normal_leaf(gen: torch.Generator, n: Optional[int], shape: Sequence[int],
                         device=device)
         return (x * std).to(dtype)
     if n is None:
-        return draw()
+        return leaf(draw())
     out = torch.empty(stacked(n, shape), dtype=dtype, device=device)
     for i in range(n):
         out[i] = draw()
-    return out
+    return leaf(out)
 
 
 # --------------------------------------------------------------------------
@@ -58,9 +86,9 @@ def init_norm(cfg: ArchConfig, n: Optional[int], dtype, device) -> Params:
     if cfg.norm == "layernorm_np":
         return {}
     shape = stacked(n, (cfg.d_model,))
-    p = {"scale": torch.ones(shape, dtype=dtype, device=device)}
+    p = {"scale": leaf(torch.ones(shape, dtype=dtype, device=device))}
     if cfg.norm == "layernorm":
-        p["bias"] = torch.zeros(shape, dtype=dtype, device=device)
+        p["bias"] = leaf(torch.zeros(shape, dtype=dtype, device=device))
     return p
 
 

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
 from repro_torch.distributed.context import tp_split
-from repro_torch.models.layers import normal_leaf, reduce_over, stacked
+from repro_torch.models.layers import leaf, normal_leaf, reduce_over, stacked
 
 Params = dict
 
@@ -80,7 +80,8 @@ def _seq_scan(step_fn, state, xs):
 
 
 def _full(n: Optional[int], shape, value: float, dtype, device):
-    return torch.full(stacked(n, shape), value, dtype=dtype, device=device)
+    return leaf(torch.full(stacked(n, shape), value, dtype=dtype,
+                           device=device))
 
 
 def _log_sigmoid(f_pre: torch.Tensor) -> torch.Tensor:
@@ -112,7 +113,7 @@ def init_mamba(cfg: ArchConfig, gen: torch.Generator, n: Optional[int],
                               device),
         "dt_proj": normal_leaf(gen, n, (dtr, di), dtr ** -0.5, dtype, device),
         "dt_bias": _full(n, (di,), -4.6, dtype, device),  # softplus^-1(0.01)
-        "A_log": a_log.expand(stacked(n, (di, ds))).contiguous(),
+        "A_log": leaf(a_log.expand(stacked(n, (di, ds))).contiguous()),
         "D": _full(n, (di,), 1.0, torch.float32, device),
         "w_out": normal_leaf(gen, n, (di, d), di ** -0.5, dtype, device),
     }

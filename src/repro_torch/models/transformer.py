@@ -41,7 +41,7 @@ from repro_torch.models.layers import (CE_CHUNK_THRESHOLD, apply_mlp,
                                        chunked_unembed_cross_entropy,
                                        cross_entropy, embed_tokens,
                                        init_embed, init_mlp, init_norm,
-                                       normal_leaf, unembed)
+                                       normal_leaf, placing, unembed)
 from repro_torch.params import resolve_device
 
 Params = Dict[str, Any]
@@ -71,12 +71,20 @@ REMATS = ("none", "dots", "full")
 # Init
 # ==========================================================================
 def init_params(cfg: ArchConfig, *, generator: torch.Generator,
-                dtype: torch.dtype = torch.bfloat16, device="cuda") -> Params:
+                dtype: torch.dtype = torch.bfloat16, device="cuda",
+                place: Optional[Callable] = None) -> Params:
     """Random weights with the reference's shapes and standard deviations,
     drawn from ``generator`` (which must live on ``device``).  Frame
     inputs have no embedding table and always an ``lm_head``; image inputs
-    add ``img_proj`` (d_vision, d_model)."""
-    dev = resolve_device(device)
+    add ``img_proj`` (d_vision, d_model).  ``place``, where given, takes
+    each leaf as soon as it is made, in drawing order, and the tree keeps
+    what it returns (``layers.placing``)."""
+    with placing(place):
+        return _init_params(cfg, generator, dtype, resolve_device(device))
+
+
+def _init_params(cfg: ArchConfig, generator: torch.Generator,
+                 dtype: torch.dtype, dev: torch.device) -> Params:
     n = cfg.n_periods
     params: Params = {"slots": {}}
     if not cfg.embedding_inputs:

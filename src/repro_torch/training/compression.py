@@ -50,8 +50,8 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor
 
 
 def init_error_feedback(params) -> Any:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 @torch.no_grad()

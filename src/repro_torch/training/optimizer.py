@@ -56,10 +56,11 @@ def lr_at(step: torch.Tensor, cfg: OptConfig) -> torch.Tensor:
 
 
 def init_opt_state(params, cfg: OptConfig) -> Dict[str, Any]:
-    """Zero moments in ``moment_dtype`` and a 0-dim int32 step, on the
-    parameters' device."""
+    """Zero moments in ``moment_dtype``, each made like its parameter (a
+    DTensor's zeros are local to its shard), and a 0-dim int32 step, on
+    the parameters' device."""
     mdt = MOMENT_DTYPES[cfg.moment_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=mdt)
     step_device = tree_leaves(params)[0].device
     return {
         "m": tree_map(zeros, params),

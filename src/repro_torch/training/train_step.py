@@ -225,12 +225,15 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
 
 def init_train_state(cfg: ArchConfig, tcfg: TrainConfig, *,
                      generator: torch.Generator,
-                     dtype: torch.dtype = torch.float32, device="cuda"):
-    """Random parameters from ``generator`` (on ``device``), zero moments,
-    and the error-feedback buffers when compression is on."""
+                     dtype: torch.dtype = torch.float32, device="cuda",
+                     place=None):
+    """Random parameters from ``generator`` (on ``device``), each leaf
+    through ``place`` as it is drawn where given (``init_params``), zero
+    moments and, when compression is on, error-feedback buffers, each
+    made like its parameter (a DTensor's zeros are its shard's)."""
     dev = resolve_device(device)
     params = transformer.init_params(cfg, generator=generator, dtype=dtype,
-                                     device=dev)
+                                     device=dev, place=place)
     opt_state = init_opt_state(params, tcfg.opt)
     if tcfg.compress_grads:
         opt_state["err"] = compression.init_error_feedback(params)

@@ -16,9 +16,12 @@ the MoE through each of ``apply_moe``'s three sharded branches; a reshard
 JAX package's own sharded step on eight virtual CPU devices, as
 tests/test_distributed_integration.py does, for the steps whose MoE
 load-balance loss is computed per shard.  The tests below read both.
-The launcher runs under ``torch.distributed.run`` on two processes (a
-(1, 2) mesh, tensor parallel) and resumes on one; and on one process its mesh path is held bit for bit to
-the meshless ``make_train_step``.
+The 8-process job also runs the launcher's sharded init against the whole
+init resharded, and the dry-run reckons that init's peak for full-width
+qwen3-8b on fake tensors.  The launcher runs under
+``torch.distributed.run`` on two processes (a (1, 2) mesh, tensor
+parallel) and resumes on one; and on one process its mesh path is held
+bit for bit to the meshless ``make_train_step``.
 """
 import dataclasses
 import json
@@ -98,6 +101,10 @@ JAX_STEPS = ("olmo-1b", "qwen3-moe-30b-a3b", "olmo-1b-accum4", "qwen3-8b",
              "qwen1.5-4b-6-heads", "llama-3.2-vision-11b", "hubert-xlarge",
              "jamba-1.5-large-398b")
 EP_AUX = tuple(s for s in STEPS if s[2] and s[5] == "a2a")
+# the launcher's sharded init: a dense, an MoE, a recurrent and a hybrid
+# arch (compression on, so the error-feedback buffers too)
+INIT_ARCHS = ("olmo-1b", "qwen3-moe-30b-a3b", "xlstm-350m",
+              "jamba-1.5-large-398b")
 G_ATOL, G_RTOL = 1e-5, 1e-4   # tests/test_torch_training.py's
 TIMEOUT_S = 300
 
@@ -109,7 +116,7 @@ WORKER = textwrap.dedent('''
     import torch.distributed as dist
 
 
-    STEPS, CFGS = %r, %r
+    STEPS, CFGS, INIT_ARCHS = %r, %r, %r
 
 
     def main(rank, world, tmp):
@@ -288,6 +295,34 @@ WORKER = textwrap.dedent('''
                            "even_local": list(even.to_local().shape),
                            "plain_unchanged": hint(plain, "batch", None)
                            is plain}
+        # the launcher's seeded init, each leaf placed as it is drawn,
+        # against the whole state drawn and then resharded
+        out["init"] = {}
+        for arch in INIT_ARCHS:
+            cfg = configs.get_tiny_config(arch)
+            tcfg = TrainConfig(compress_grads=True)
+            got, ref = (dict(zip(("params", "opt"), init_train_state(
+                cfg, tcfg, generator=torch.Generator().manual_seed(0),
+                device="cpu", place=place))) for place in (
+                    elastic.placer(cfg, mesh), None))
+            ref = elastic.reshard(ref, cfg, mesh)
+            bad = torch.zeros(3, dtype=torch.int64)   # differ, storage, sharded
+            pairs = list(zip(tree_leaves(got), tree_leaves(ref)))
+            for a, b in pairs:
+                if isinstance(b, DTensor):
+                    la, lb = a.to_local(), b.to_local()
+                    bad[0] += not (a.placements == b.placements
+                                   and a.shape == b.shape
+                                   and torch.equal(la, lb))
+                    bad[1] += la.untyped_storage().nbytes() != la.nbytes
+                    bad[2] += any(p.is_shard() for p in a.placements)
+                else:
+                    bad[0] += isinstance(a, DTensor) or not torch.equal(a, b)
+            dist.all_reduce(bad)
+            out["init"][arch] = {"leaves": len(pairs),
+                                 "differ": int(bad[0]),
+                                 "larger_storage": int(bad[1]),
+                                 "sharded_leaves": int(bad[2]) // world}
         if rank == 0:
             with open(f"{tmp}/result.json", "w") as fh:
                 json.dump(out, fh)
@@ -298,7 +333,7 @@ WORKER = textwrap.dedent('''
         import torch.multiprocessing as mp
         mp.start_processes(main, args=(8, sys.argv[1]), nprocs=8,
                            start_method="spawn")
-''' % (STEPS, CFGS))
+''' % (STEPS, CFGS, INIT_ARCHS))
 
 # the JAX package's sharded step on a (2, 4) mesh of eight virtual CPU
 # devices, from its own seeded init (the weights the fixture saves)
@@ -584,6 +619,42 @@ def test_hint_divisibility_guard_on_a_mesh(mesh_run):
     assert h["odd"] == ["R", "R"]
     assert h["even"] == ["S(0)", "R"] and h["even_local"] == [2, 4]
     assert h["plain_unchanged"]
+
+
+@pytest.mark.parametrize("arch", INIT_ARCHS)
+def test_sharded_init_matches_reshard(mesh_run, arch):
+    """The launcher's init (``elastic.placer``: each leaf placed as it is
+    drawn, the moments and error feedback made as shards) gives every one
+    of the 8 processes, bit for bit, the shards and placements that
+    drawing the whole state from the same seed and ``reshard``-ing it
+    gives; every local tensor's storage holds its own bytes and no more
+    (no view of a whole leaf survives)."""
+    _, res, _ = mesh_run
+    r = res["init"][arch]
+    assert r["differ"] == 0 and r["larger_storage"] == 0, r
+    assert r["sharded_leaves"] > 0, r
+
+
+def test_sharded_init_peak_on_fake_tensors():
+    """The dry-run's reckoning of the launcher's init of full-width
+    qwen3-8b (f32 state of 98.3 GB) on one rank of a fake (1, 4) mesh, on
+    fake tensors: the peak stays within this rank's shards (24.6 GB) and
+    the largest whole leaf; drawing the whole state and then resharding,
+    as the launcher did before, peaks above the whole state."""
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-8b", "--init-memory", "1", "4", "--device", "cpu"],
+        env=_env(), capture_output=True, text=True, timeout=TIMEOUT_S)
+    assert r.returncode == 0, r.stderr[-3000:]
+    sharded, whole = json.loads(r.stdout.splitlines()[-1])["init_memory"]
+    print(sharded, whole)
+    assert sharded["sharded"] and not whole["sharded"]
+    assert sharded["local"] == whole["local"]
+    assert abs(sharded["local"] / 1e9 - 24.57) < 0.01
+    assert abs(sharded["whole"] / 1e9 - 98.29) < 0.01
+    assert sharded["local"] <= sharded["peak"] <= (
+        sharded["local"] + sharded["largest_leaf"])
+    assert whole["peak"] > whole["whole"]
 
 
 def _launch(args, tmp_path, procs=None):

@@ -9,7 +9,6 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-REF = ROOT / "src" / "repro"
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 COPIES = ([f"configs/{m}.py" for m in (
@@ -20,12 +19,19 @@ COPIES = ([f"configs/{m}.py" for m in (
     + [f"core/{m}.py" for m in (
         "task", "ops", "registry", "events", "preemption", "ready_queue",
         "scheduler", "arbiter", "predictor", "metrics", "faults", "simulator",
-        "cluster", "arch_ops", "__init__")]
+        "cluster", "arch_ops", "__init__", "trace", "autoscaler")]
     + ["serving/request.py", "serving/kv_cache.py", "serving/__init__.py",
        "training/data.py"]
     + [f"workloads/{m}.py" for m in (
         "__init__", "admission", "arrivals", "generator", "retry",
-        "serving_adapter", "spec", "tenants", "trace_io")])
+        "serving_adapter", "spec", "tenants", "trace_io")]
+    + [f"obs/{m}.py" for m in (
+        "__init__", "tracing", "telemetry", "slo", "replay_diff")]
+    # the examples that compute with no framework: their source is
+    # examples/<name>.py at the root, their copy under the port's examples/
+    + [f"examples/{m}.py" for m in (
+        "chaos_recovery", "closed_loop_admission", "elastic_autoscale",
+        "observability_tour", "traffic_load_sweep")])
 # the engine copy's two edits: the port's H100 is the default hardware
 ENGINE_EDITS = [
     ("from repro_torch.hw import TPU_V5E, HardwareModel",
@@ -62,9 +68,15 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path}: imports {bad}"
 
 
+def _source(rel: str) -> str:
+    """The reference file a copy at ``rel`` (under the port) is made from."""
+    return rel if rel.startswith("examples/") else f"src/repro/{rel}"
+
+
 def _copy_of(rel: str) -> str:
-    header = f"# Copied from src/repro/{rel}; `repro.` rewritten to `repro_torch.`.\n"
-    return header + re.sub(r"\brepro\.", "repro_torch.", (REF / rel).read_text())
+    src = _source(rel)
+    header = f"# Copied from {src}; `repro.` rewritten to `repro_torch.`.\n"
+    return header + re.sub(r"\brepro\.", "repro_torch.", (ROOT / src).read_text())
 
 
 @pytest.mark.parametrize("rel", COPIES)
