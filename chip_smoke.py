@@ -110,13 +110,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
     (1, 1) counterpart of phase 12's full-width step, on fake tensors of
     the card, must count exactly the FLOPs that ``FlopCounterMode`` counts
     over one real step of it (run here meanwhile, no kernel launched),
-    its memory peak (``MemTracker``) beside the step's measured one; and
-    the reference's cells olmo-1b x train_4k and xlstm-350m x long_500k on
-    the 16x16 mesh through the dry-run's command line (fake tensors of the
-    card, its default), and qwen3-8b x train_4k at 12 of its 36 layers,
-    each one's result and wall; a train cell's FLOPs per device over the
-    analytic count (olmo-1b's within 0.9-1.1, its dense layers split over
-    'model'), collective bytes by kind and peak;
+    its memory peak (``MemTracker``) beside the step's measured one; the
+    same for one real train step of full-width xlstm-350m in f32 (seq
+    512, global batch 2, remat ``full``; every scan chunk rematerialised)
+    against its counterpart, whose scans count their turns, with the
+    wall of a second step; tiny xlstm-350m's and jamba's gradients at two
+    chunks of their scans equal under remat none, full and dots (the
+    chunk checkpoints nested in the period's); and the reference's cells
+    olmo-1b x train_4k,
+    xlstm-350m x long_500k and train_4k and jamba-1.5-large-398b x
+    prefill_32k on the 16x16 mesh through the dry-run's command line
+    (fake tensors of the card, its default), and qwen3-8b x train_4k at
+    12 of its 36 layers, each one's result and wall; a train cell's FLOPs
+    per device over the analytic count (olmo-1b's within 0.9-1.1, its
+    dense layers split over 'model'), collective bytes by kind and peak;
 15. sharded serving (``serve_sharded``; ``distributed/serve_step.py``):
     (a) the kernels' new modes at serving shapes: the decode kernel at
     qwen3-8b's shape in bf16 (Hq 32 over Hkv 8, and over 4: the group of
@@ -1912,23 +1919,39 @@ def phase_distributed(card: str):
 DRYRUN_ARGS = ["--arch", "olmo-1b", "--steps", "1", "--seq-len", "4096",
                "--global-batch", "8", "--grad-accum", "4", "--remat", "full",
                "--device", "cuda", "--dtype", "float32", "--seed", "0"]
-# the same step as the dry-run's (1, 1) cell, on fake tensors of the card
+# full-width xlstm-350m's first train steps (24 layers, f32): seq 512, four
+# chunks of its scans, each rematerialised inside the period's remat;
+# the first counted while the dry-runs trace, the second timed after them
+DRYRUN_SSM_ARGS = ["--arch", "xlstm-350m", "--steps", "2", "--seq-len",
+                   "512", "--global-batch", "2", "--grad-accum", "1",
+                   "--remat", "full", "--device", "cuda", "--dtype",
+                   "float32", "--seed", "0"]
+# a real step's counterpart: the dry-run's (1, 1) cell of the same step on
+# fake tensors of the card, the scans' turns counted (arch, seq, global
+# batch, grad_accum as its one argument)
 DRYRUN_STEP = """
-import json, torch
+import json, sys, torch
 from repro_torch import configs
 from repro_torch.configs import Shape
 from repro_torch.launch import dryrun
 from repro_torch.training import TrainConfig
+arch, seq, batch, ga = json.loads(sys.argv[1])
 with dryrun.fake_mesh((1, 1), ("data", "model"), "cuda") as mesh:
-    r = dryrun.trace_step(configs.get_config("olmo-1b"),
-                          Shape("train", "train", 4096, 8), mesh,
-                          tcfg=TrainConfig(remat="full", grad_accum=4),
+    r = dryrun.trace_step(configs.get_config(arch),
+                          Shape("train", "train", seq, batch), mesh,
+                          tcfg=TrainConfig(remat="full", grad_accum=ga),
                           dtype=torch.float32, device="cuda")
 print(json.dumps(r))
 """
-# the reference's own cells, through the dry-run's command line
+DRYRUN_STEPS = {"counterpart": ["olmo-1b", 4096, 8, 4],
+                "ssm_counterpart": ["xlstm-350m", 512, 2, 1]}
+# the reference's own cells, through the dry-run's command line; the
+# recurrent archs' train_4k and prefill_32k trace since their scans' turns
+# are counted
 DRYRUN_CELLS = (("olmo-1b", "train_4k", ["--by-label"]),
-                ("xlstm-350m", "long_500k", []))
+                ("xlstm-350m", "long_500k", []),
+                ("xlstm-350m", "train_4k", []),
+                ("jamba-1.5-large-398b", "prefill_32k", []))
 # qwen3-8b x train_4k (GQA whose 8 KV heads do not divide 16, qk-norm, a
 # vocabulary of 151,936 over 16) at 12 of its 36 layers, widths full: at
 # full depth its trace alone takes some five minutes
@@ -1943,6 +1966,11 @@ print(json.dumps(dryrun.run_cell("qwen3-8b", "train_4k", False, verbose=False,
 # every 'model' rank (16.42x the analytic count)
 DRYRUN_FACTOR = (0.9, 1.1)
 DRYRUN_PEAK_GB = 14.83
+# tiny xlstm-350m and jamba at two chunks of their scans: the chunk
+# checkpoints nested in the period's (remat full) and in its
+# selective-checkpoint context (remat dots) give remat none's gradients
+REMAT_ARCHS = ("xlstm-350m", "jamba-1.5-large-398b")
+REMAT_TOL = 1e-5        # relative to each gradient's largest magnitude
 
 
 def _start(argv, out: Path):
@@ -1952,12 +1980,13 @@ def _start(argv, out: Path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.Popen([sys.executable] + argv, env=env, stdout=fh,
                             stderr=subprocess.STDOUT, cwd=ROOT)
-    return proc, fh, time.perf_counter()
+    return proc, fh, time.time()
 
 
 def _finish(job, what: str) -> float:
-    """Wait for a ``_start`` job; its wall in seconds.  Raises with its
-    output's tail when it failed."""
+    """Wait for a ``_start`` job; its wall in seconds, to its output's
+    last write (it may be waited for later).  Raises with its output's
+    tail when it failed."""
     proc, fh, t0 = job
     try:
         rc = proc.wait(timeout=600)
@@ -1966,16 +1995,19 @@ def _finish(job, what: str) -> float:
     if rc:
         tail = Path(fh.name).read_text()[-3000:]
         raise SystemExit(f"dryrun: {what} exited {rc}:\n{tail}")
-    return time.perf_counter() - t0
+    return Path(fh.name).stat().st_mtime - t0
 
 
-def dryrun_real_step() -> dict:
-    """One full-width olmo-1b step through the launcher's parts (its NCCL
-    (1, 1) mesh, DTensor state), as phase train runs it: FLOPs counted by
-    ``FlopCounterMode`` and the peak of allocated memory over the step."""
+def dryrun_real_step(argv, before_timed=None) -> dict:
+    """A full-width step through the launcher's parts (its NCCL (1, 1)
+    mesh, DTensor state), as phase train runs it: FLOPs counted by
+    ``FlopCounterMode`` and the peak of allocated memory over the step;
+    where ``argv`` asks for a second step, its wall, uncounted, taken
+    after ``before_timed()`` returns."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.launch import train as launcher
-    args = launcher.parse_args(DRYRUN_ARGS)
+    args = launcher.parse_args(argv)
+    steps, args.steps = args.steps, 1
     run = launcher.setup(args)
     _, state = launcher.init_or_resume(run, args)
     torch.cuda.synchronize()
@@ -1984,15 +2016,74 @@ def dryrun_real_step() -> dict:
     with FlopCounterMode(display=False) as fc:
         launcher.train(run, args, state, 0, log)
     torch.cuda.synchronize()
-    # no wall: the dry-runs trace on this host's cores meanwhile (phases
-    # train and distributed time this step)
     row = dict(flops=fc.get_total_flops(),
                peak_bytes=torch.cuda.max_memory_allocated(),
                loss=log[0]["loss"])
+    if steps > 1:
+        if before_timed is not None:
+            before_timed()
+        args.steps = 2
+        launcher.train(run, args, state, 1, log)
+        row.update(step_wall_s=log[1]["wall_s"], loss_2=log[1]["loss"])
     del state
     gc.collect()
     torch.cuda.empty_cache()
     return row
+
+
+def remat_nesting(device="cuda") -> dict:
+    """Loss and every gradient of tiny ``REMAT_ARCHS`` (f32, seq 256: two
+    chunks of their scans, batch 2) under remat ``full`` and ``dots``
+    against ``none`` on ``device``: bit for bit or not, and the largest
+    difference relative to each gradient's largest magnitude, which must
+    stay within REMAT_TOL."""
+    from repro_torch.models import get_model, ssm
+    from repro_torch.models import transformer as tt
+    from repro_torch.training import DataConfig, TokenDataset
+    from repro_torch.training.train_step import batch_to_device
+    rows = {}
+    for name in REMAT_ARCHS:
+        cfg = get_model(name, tiny=True).cfg
+        params = tt.init_params(
+            cfg, generator=torch.Generator(device=device).manual_seed(0),
+            dtype=torch.float32, device=device)
+        batch = batch_to_device(TokenDataset(DataConfig(
+            seq_len=2 * ssm.SCAN_CHUNK, global_batch=2, seed=2),
+            cfg).batch_at(0), device)
+        out = {}
+        for remat in ("none", "full", "dots"):
+            aliases = tt.tree_map(lambda t: t.detach().requires_grad_(True),
+                                  params)
+            loss, _ = tt.train_loss(aliases, batch, cfg, remat=remat)
+            out[remat] = (loss, torch.autograd.grad(
+                loss, tt.tree_leaves(aliases)))
+        loss0, grads0 = out.pop("none")
+        rows[name] = {"loss": float(loss0.detach()), **{remat: dict(
+            bit_for_bit=bool(torch.equal(loss, loss0) and all(
+                torch.equal(a, b) for a, b in zip(grads, grads0))),
+            max_rel_err=max(_rel(a, b) for a, b in zip(grads, grads0)))
+            for remat, (loss, grads) in out.items()}}
+    if any(r[m]["max_rel_err"] > REMAT_TOL for r in rows.values()
+           for m in ("full", "dots")):
+        raise SystemExit(f"dryrun: the remat policies disagree: {rows}")
+    return rows
+
+
+def _counterpart(dry: dict, real: dict, wall: float) -> dict:
+    """A real step beside its dry-run counterpart."""
+    return dict(
+        flops_dryrun=dry["flops"], flops_real_step=real["flops"],
+        flops_equal=dry["flops"] == real["flops"],
+        peak_dryrun_gb=dry["memory"]["peak"] / 1e9,
+        peak_real_step_gb=real["peak_bytes"] / 1e9,
+        peak_ratio_dryrun_over_real=dry["memory"]["peak"]
+        / real["peak_bytes"],
+        memory_dryrun=dry["memory"], memory_source="MemTracker",
+        collectives_dryrun={k: dry[k] for k in dry if k.startswith("coll")},
+        n_collectives_dryrun=dry["n_collectives"],
+        bytes_accessed_dryrun=dry["bytes_accessed"],
+        trace_s=dry["trace_s"], wall_s=wall,
+        real_step_loss=real["loss"])
 
 
 def phase_dryrun(card: str):
@@ -2002,25 +2093,36 @@ def phase_dryrun(card: str):
     ``full``) on fake tensors of the card must count the FLOPs that
     ``FlopCounterMode`` counts over one real step of it, exactly; its
     memory peak stands beside the step's measured one, with their ratio;
-    (b) the reference's cells olmo-1b x train_4k and xlstm-350m x
-    long_500k on the single-pod mesh, on fake tensors of the card (the
-    command line's default), and qwen3-8b x train_4k at a third of its
-    depth, each cell's result and wall, a train cell's FLOPs per device
-    over the analytic count, collective bytes by kind and peak beside
-    it; olmo-1b's factor must lie in DRYRUN_FACTOR (the dense layers
-    split over 'model') and its peak at or under DRYRUN_PEAK_GB.  Every
-    dry-run runs in a subprocess of its own, where its fake process group
-    never meets this process's NCCL group; they run while the real step
-    does.  No kernel launches."""
+    (b) the same for full-width xlstm-350m (24 layers, f32, seq 512, four
+    chunks of its scans, global batch 2, remat ``full``): the real step
+    runs every one of its 512 steps a layer, each chunk rematerialised,
+    the dry-run counts each scan's turns between the first and the last
+    once, multiplied; with the wall of a second, uncounted step;
+    (c) the reference's cells olmo-1b x train_4k, xlstm-350m x long_500k
+    and train_4k and jamba-1.5-large-398b x prefill_32k on the single-pod
+    mesh, on fake tensors of the card (the command line's default), and
+    qwen3-8b x train_4k at a third of its depth, each cell's result and
+    wall, a train cell's FLOPs per device over the analytic count,
+    collective bytes by kind and peak beside it; each ok, olmo-1b's
+    factor in DRYRUN_FACTOR (the dense layers split over 'model') and its
+    peak at or under DRYRUN_PEAK_GB.  Every dry-run runs in a subprocess
+    of its own, where its fake process group never meets this process's
+    NCCL group; they run while the real steps do, but for xlstm-350m's
+    timed one, which runs after them, alone; (d) ``remat_nesting``: the
+    chunk checkpoints nested in the period's on this torch.  No kernel
+    launches."""
     out = ROOT / "build" / "dryrun"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    jobs = {"counterpart": _start(["-c", DRYRUN_STEP], out / "step.log")}
+    jobs = {name: _start(["-c", DRYRUN_STEP, json.dumps(step)],
+                         out / f"{name}.log")
+            for name, step in DRYRUN_STEPS.items()}
     for arch, shape, extra in DRYRUN_CELLS:
         jobs[f"{arch}|{shape}"] = _start(
             ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-             shape, "--mesh", "single", "--out", str(out / f"{arch}.json")]
-            + extra, out / f"{arch}.log")
+             shape, "--mesh", "single",
+             "--out", str(out / f"{arch}_{shape}.json")] + extra,
+            out / f"{arch}_{shape}.log")
     jobs["qwen3-8b|train_4k"] = _start(["-c", DRYRUN_QWEN], out / "qwen.log")
     try:
         torch.use_deterministic_algorithms(True)
@@ -2028,23 +2130,27 @@ def phase_dryrun(card: str):
         gc.collect()
         torch.cuda.empty_cache()
         _reset_launches()
-        real = dryrun_real_step()
+        real = dryrun_real_step(DRYRUN_ARGS)
+        walls = {}
+        real_ssm = dryrun_real_step(DRYRUN_SSM_ARGS, lambda: walls.update(
+            {name: _finish(job, name) for name, job in jobs.items()}))
+        nesting = remat_nesting()
         launches = _launches()
-        walls = {name: _finish(job, name) for name, job in jobs.items()}
     finally:
         for proc, fh, _ in jobs.values():
             proc.kill()
             proc.wait()
             fh.close()
-    dry = json.loads((out / "step.log").read_text().strip().splitlines()[-1])
+    last = lambda name: json.loads(
+        (out / name).read_text().strip().splitlines()[-1])
     cells = {}
     for arch, shape, _ in DRYRUN_CELLS:
         key = f"{arch}|{shape}|single"
-        cells[key] = dict(json.loads((out / f"{arch}.json").read_text())[key],
-                          wall_s=walls[f"{arch}|{shape}"])
-    cells["qwen3-8b|train_4k|single"] = dict(
-        json.loads((out / "qwen.log").read_text().strip().splitlines()[-1]),
-        wall_s=walls["qwen3-8b|train_4k"])
+        cells[key] = dict(
+            json.loads((out / f"{arch}_{shape}.json").read_text())[key],
+            wall_s=walls[f"{arch}|{shape}"])
+    cells["qwen3-8b|train_4k|single"] = dict(last("qwen.log"),
+                                             wall_s=walls["qwen3-8b|train_4k"])
     train_cells = {k: dict(
         flops_over_analytic=c["flops_per_device"]
         / c["analytic_flops_per_device"],
@@ -2056,26 +2162,22 @@ def phase_dryrun(card: str):
     from repro_torch import configs
     cfg = configs.get_config("olmo-1b")
     counterpart = dict(
-        flops_dryrun=dry["flops"], flops_real_step=real["flops"],
-        flops_equal=dry["flops"] == real["flops"],
+        _counterpart(last("counterpart.log"), real, walls["counterpart"]),
         flops_from_shapes_executed=train_flops(cfg, 8 * 4096, 4096)[
-            "executed"],
-        peak_dryrun_gb=dry["memory"]["peak"] / 1e9,
-        peak_real_step_gb=real["peak_bytes"] / 1e9,
-        peak_ratio_dryrun_over_real=dry["memory"]["peak"]
-        / real["peak_bytes"],
-        memory_dryrun=dry["memory"], memory_source="MemTracker",
-        collectives_dryrun={k: dry[k] for k in dry if k.startswith("coll")},
-        n_collectives_dryrun=dry["n_collectives"],
-        bytes_accessed_dryrun=dry["bytes_accessed"],
-        trace_s=dry["trace_s"], wall_s=walls["counterpart"],
-        real_step_loss=real["loss"])
-    emit("dryrun", card=card, counterpart=counterpart, cells=cells,
-         train_cells=train_cells, launches=launches)
+            "executed"])
+    ssm = dict(_counterpart(last("ssm_counterpart.log"), real_ssm,
+                            walls["ssm_counterpart"]),
+               step_wall_s=real_ssm["step_wall_s"],
+               tokens_per_s=2 * 512 / real_ssm["step_wall_s"],
+               real_step_loss_2=real_ssm["loss_2"])
+    emit("dryrun", card=card, counterpart=counterpart, ssm_counterpart=ssm,
+         remat_nesting=nesting, cells=cells, train_cells=train_cells,
+         launches=launches)
     bad = []
-    if not counterpart["flops_equal"]:
-        bad.append(f"the dry-run counts {dry['flops']} FLOPs, the real step "
-                   f"{real['flops']}")
+    for name, c in (("olmo-1b", counterpart), ("xlstm-350m", ssm)):
+        if not c["flops_equal"]:
+            bad.append(f"{name}: the dry-run counts {c['flops_dryrun']} "
+                       f"FLOPs, the real step {c['flops_real_step']}")
     if any(c["status"] != "ok" for c in cells.values()):
         bad.append(f"a reference cell is not ok: "
                    f"{[c['status'] for c in cells.values()]}")
@@ -2084,7 +2186,7 @@ def phase_dryrun(card: str):
             <= DRYRUN_FACTOR[1]) or olmo["peak_gb"] > DRYRUN_PEAK_GB:
         bad.append(f"olmo-1b x train_4k: {olmo}")
     if any(n for n in launches.values()):
-        bad.append(f"kernel launches in the real step: {launches}")
+        bad.append(f"kernel launches in the real steps: {launches}")
     if bad:
         raise SystemExit(f"dryrun: {bad}")
     return launches

@@ -276,11 +276,14 @@ def _serve_step(cfg, shape, mesh, dtype, device):
 def trace_step(cfg: ArchConfig, shape: Shape, mesh, *,
                tcfg: Optional[TrainConfig] = None,
                dtype: torch.dtype = torch.bfloat16, device="cuda",
-               by_label: bool = False) -> Dict[str, object]:
+               by_label: bool = False, loops: bool = True
+               ) -> Dict[str, object]:
     """One rank's step of ``shape`` on ``mesh`` (which runs over a fake
     process group), on fake tensors of ``device``: ``op_count``'s counts,
     the memory, and the seconds it took to trace (``trace_s``).  A train
-    shape needs ``tcfg``."""
+    shape needs ``tcfg``.  With ``loops`` (the default) the recurrent
+    scans run each distinct turn once, counted for every turn it stands
+    for (``op_count.counting``); without, every turn runs."""
     with FakeTensorMode(allow_non_fake_inputs=True):
         if shape.kind == "train":
             args, step = _train_step(cfg, shape, mesh, tcfg, dtype, device)
@@ -292,7 +295,7 @@ def trace_step(cfg: ArchConfig, shape: Shape, mesh, *,
         tracker.track_external(*args)
         t0 = time.perf_counter()
         with use_rules(mesh, shd.logical_rules(cfg, shape, mesh)), grad, \
-                tracker, counting(by_label) as counts:
+                tracker, counting(by_label, loops) as counts:
             out = step(*args)
         trace_s = time.perf_counter() - t0
     dev = torch.device(device).type

@@ -14,6 +14,13 @@ becomes a Python loop over time steps that runs only the recurrence; what
 does not depend on the carried state (input casts, gate transforms,
 Mamba's discretisation) is computed for the whole sequence or chunk
 before the loop, elementwise as the reference computes it per step.
+Where autograd records, the scans run as the reference's scan of chunks
+of ``SCAN_CHUNK`` steps, each chunk rematerialised (``checkpoint``), so
+the backward keeps the chunk-boundary states and one chunk's steps at a
+time, not every step's; under ``no_grad`` the loop is the same, less the
+checkpoints.  Inside the dry-run's counting (``launch/op_count.py``)
+each loop runs its first and last turns and the ones between once,
+counted as many times as they run (``op_count.counted_loop``).
 Every state leaf is f32 whatever the model dtype, and the xLSTM
 stabilisers ``m`` start at -1e30.  The reference's ``hint`` sharding
 annotations do nothing on one device; in the sharded train step's and
@@ -33,22 +40,27 @@ ulp, and every softplus here is in f32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ArchConfig
-from repro_torch.distributed.context import tp_split
+from repro_torch.distributed.context import current, tp_split, use_ctx
+from repro_torch.launch import op_count
 from repro_torch.models.layers import leaf, normal_leaf, reduce_over, stacked
 
 Params = dict
 
-# Mamba's prefill runs its projections, conv and scan one chunk of this
-# many tokens at a time (one chunk of S when S is not a multiple), so no
-# (S, d_inner) tensor is ever materialised; the carry between chunks is
-# (ssm state, conv tail), exactly the decode state.
+# the scans' chunk, the reference's: Mamba's prefill runs its projections,
+# conv and scan one chunk of this many tokens at a time (one chunk of S
+# when S is not a multiple), so no (S, d_inner) tensor is ever
+# materialised, its carry between chunks (ssm state, conv tail) exactly the
+# decode state; where autograd records, every scan rematerialises each
+# chunk (``_seq_scan``, ``mamba_prefill``)
 SCAN_CHUNK = 128
 M_INIT = -1e30
 # the floor of the xLSTM normalisers, a CPU scalar that ``torch.maximum``
@@ -66,17 +78,57 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (a.reshape(-1, a.shape[-1]) @ w).unflatten(0, a.shape[:-1])
 
 
-def _seq_scan(step_fn, state, xs):
-    """Run ``step_fn(state, x_t) -> (state, y_t)`` over the leading (time)
-    dim of every tensor in the tuple ``xs``; returns (state, stacked ys).
-    The reference scans in chunks of ``SCAN_CHUNK`` only so that its
-    backward pass keeps chunk-boundary states; forward, that is this one
-    loop."""
+def _checkpointed(body, params, carry, xs):
+    """``body(params, carry, xs)`` under a non-reentrant ``checkpoint``,
+    its tensors passed flat, so the checkpoint keeps them and no tuple
+    of them.  The recompute may run on another thread (the device's
+    backward thread): it enters the sharding context its forward saw."""
+    ctx, n_p, n_c = current(), len(params), len(carry)
+
+    def run(*flat):
+        with use_ctx(ctx):
+            return body(flat[:n_p], flat[n_p:n_p + n_c], flat[n_p + n_c:])
+    return checkpoint(run, *params, *carry, *xs, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _loop(body, params, carry, xs, step: int, remat: bool = False):
+    """``carry, y = body(params, carry, x_turn)`` over the turns of
+    ``step`` rows of the tensors ``xs`` (dim 0; a turn of one row, the
+    row itself) in order, each under ``_checkpointed`` with ``remat``:
+    (carry, the ys stacked, or with ``step`` > 1 concatenated).  Inside
+    the dry-run's counting the turns between the first and the last run
+    once, counted as many times as they are (``op_count.counted_loop``)."""
+    run = functools.partial(_checkpointed, body) if remat else body
+    counter = op_count.loop_counter()
+    if counter is not None and xs[0].shape[0] > 2 * step:
+        return op_count.counted_loop(counter, run, params, carry, xs, step)
     ys = []
-    for t in range(xs[0].shape[0]):
-        state, y = step_fn(state, tuple(x[t] for x in xs))
+    for x_t in zip(*(x.unbind(0) if step == 1 else x.split(step)
+                     for x in xs)):
+        carry, y = run(params, carry, x_t)
         ys.append(y)
-    return state, torch.stack(ys)
+    return carry, torch.stack(ys) if step == 1 else torch.cat(ys)
+
+
+def _steps(step_fn, params, state, xs):
+    """``step_fn(params, state, x_t) -> (state, y_t)`` over the leading
+    (time) dim of every tensor in the tuple ``xs``; (state, stacked ys)."""
+    return _loop(step_fn, params, state, xs, 1)
+
+
+def _seq_scan(step_fn, params, state, xs):
+    """:func:`_steps` as the reference's ``_chunked_seq_scan``: where
+    autograd records and S is a multiple of ``SCAN_CHUNK`` and more than
+    one chunk, chunk by chunk, the state carried between them, each chunk
+    rematerialised, so the backward pass keeps chunk-boundary states
+    rather than every step's; otherwise one chunk of S."""
+    s_len = xs[0].shape[0]
+    chunk = SCAN_CHUNK if s_len % SCAN_CHUNK == 0 else s_len
+    if chunk == s_len or not torch.is_grad_enabled():
+        return _steps(step_fn, params, state, xs)
+    return _loop(functools.partial(_steps, step_fn), params, state, xs,
+                 chunk, remat=True)
 
 
 def _full(n: Optional[int], shape, value: float, dtype, device):
@@ -150,12 +202,47 @@ def _inner_block(p: Params, cfg: ArchConfig):
             "w_out": cut(p["w_out"], 0)}, inner, n
 
 
+def _mamba_step(_, carry, xs):
+    """One step of the selective scan; the new state is also its output."""
+    s = xs[0] * carry[0] + xs[1]
+    return (s,), s
+
+
+def _mamba_chunk(dims, inner, params, carry, xs):
+    """One chunk (chunk,B,D) of ``mamba_prefill``: (carry, its output)."""
+    dtr, ds, dc = dims
+    w_in, conv_w, x_proj, dt_proj, dt_bias, a, d_skip, w_out = params
+    s, tail = carry
+    x_chunk, = xs
+    chunk = x_chunk.shape[0]
+    u_pre, z = _mm(x_chunk, w_in).chunk(2, dim=-1)           # (chunk,B,Di)
+    # causal depthwise conv across the chunk boundary via the tail, oldest
+    # tap first, summed in x's dtype (never F.conv1d: cuDNN may round f32
+    # convolutions to TF32)
+    u_ext = torch.cat([tail, u_pre])
+    u = sum(u_ext[i:i + chunk] * conv_w[i] for i in range(dc))
+    u = F.silu(u)
+    tail = u_ext[chunk:]
+    proj = reduce_over(_mm(u, x_proj), inner).float()
+    dt = F.softplus(_mm(proj[..., :dtr], dt_proj) + dt_bias)
+    uf = u.float()
+    # the step's decay and input, for every step of the chunk
+    da = torch.exp(dt[..., None] * a)                        # (chunk,B,Di,ds)
+    dbu = (dt * uf)[..., None] * proj[..., None, dtr:dtr + ds]
+    (s,), states = _steps(_mamba_step, (), (s,), (da, dbu))
+    y = torch.einsum("tbis,tbs->tbi", states,
+                     proj[..., dtr + ds:]) + uf * d_skip
+    return (s, tail), _mm(y.to(x_chunk.dtype) * F.silu(z), w_out)
+
+
 def mamba_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
                   ) -> Tuple[torch.Tensor, Params]:
     """x: (B,S,D).  The in-projection, causal conv, gate projections,
     selective scan, gating and out-projection run one chunk at a time,
     carrying (ssm state, conv tail); the tail holds the last d_conv - 1
-    pre-conv inputs in x's dtype.
+    pre-conv inputs in x's dtype.  Where autograd records and there is
+    more than one chunk, each chunk is rematerialised, as the reference's
+    ``jax.checkpoint(inner)``.
 
     With the inner channels split (``_inner_block``) every per-channel
     leaf holds this process's channels, and so do the conv, the scan and
@@ -163,41 +250,19 @@ def mamba_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
     reduced over the split's axes (``x_proj``'s before dt, B and C)."""
     b, s_len, _ = x.shape
     ds, dc = cfg.mamba_d_state, cfg.mamba_d_conv
-    dtr = _dt_rank(cfg)
     p, inner, di = _inner_block(p, cfg)
-    w_in = p["w_in"]
-    a = -torch.exp(p["A_log"])                               # (Di, ds)
-    dt_proj = p["dt_proj"].float()
-    dt_bias = p["dt_bias"].float()
     chunk = SCAN_CHUNK if s_len % SCAN_CHUNK == 0 else s_len
-
-    s = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
-    tail = torch.zeros((dc - 1, b, di), dtype=x.dtype, device=x.device)
-    outs = []
-    for x_chunk in x.transpose(0, 1).split(chunk):           # (chunk,B,D)
-        u_pre, z = _mm(x_chunk, w_in).chunk(2, dim=-1)       # (chunk,B,Di)
-        # causal depthwise conv across the chunk boundary via the tail,
-        # oldest tap first, summed in x's dtype (never F.conv1d: cuDNN
-        # may round f32 convolutions to TF32)
-        u_ext = torch.cat([tail, u_pre])
-        u = sum(u_ext[i:i + chunk] * p["conv_w"][i] for i in range(dc))
-        u = F.silu(u)
-        tail = u_ext[chunk:]
-        proj = reduce_over(_mm(u, p["x_proj"]), inner).float()
-        dt = F.softplus(_mm(proj[..., :dtr], dt_proj) + dt_bias)
-        uf = u.float()
-        # the step's decay and input, for every step of the chunk
-        da = torch.exp(dt[..., None] * a)                    # (chunk,B,Di,ds)
-        dbu = (dt * uf)[..., None] * proj[..., None, dtr:dtr + ds]
-        states = []
-        for t in range(x_chunk.shape[0]):
-            s = da[t] * s + dbu[t]
-            states.append(s)
-        y = torch.einsum("tbis,tbs->tbi", torch.stack(states),
-                         proj[..., dtr + ds:]) + uf * p["D"]
-        outs.append(_mm(y.to(x.dtype) * F.silu(z), p["w_out"]))
+    params = (p["w_in"], p["conv_w"], p["x_proj"], p["dt_proj"].float(),
+              p["dt_bias"].float(), -torch.exp(p["A_log"]), p["D"],
+              p["w_out"])
+    carry = (torch.zeros((b, di, ds), dtype=torch.float32, device=x.device),
+             torch.zeros((dc - 1, b, di), dtype=x.dtype, device=x.device))
+    (s, tail), out = _loop(
+        functools.partial(_mamba_chunk, (_dt_rank(cfg), ds, dc), inner),
+        params, carry, (x.transpose(0, 1),), chunk,      # chunks (chunk,B,D)
+        remat=torch.is_grad_enabled() and s_len > chunk)
     # reference ssm.py:145: hint(out, "batch", None, None)
-    out = reduce_over(torch.cat(outs), inner).transpose(0, 1)
+    out = reduce_over(out, inner).transpose(0, 1)
     return out, {"ssm": s, "conv": tail.transpose(0, 1)}
 
 
@@ -312,8 +377,8 @@ def mlstm_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
     state = (torch.zeros((b, hh, dh, dh), **f32),
              torch.zeros((b, hh, dh), **f32),
              torch.full((b, hh), M_INIT, **f32))
-    state, hs = _seq_scan(_mlstm_step, state,
-                          tuple(t.transpose(0, 1) for t in xs))
+    state, hs = _seq_scan(lambda _, st, x_t: _mlstm_step(st, x_t), (),
+                          state, tuple(t.transpose(0, 1) for t in xs))
     return _mlstm_out(hs.transpose(0, 1), z, p, x), _mlstm_state(state)
 
 
@@ -387,8 +452,8 @@ def slstm_prefill(x: torch.Tensor, p: Params, cfg: ArchConfig
              torch.full((b, h, dh), M_INIT, dtype=torch.float32,
                         device=x.device))
     state, hs = _seq_scan(
-        lambda st, xs: _slstm_step(p["r_zifo"], st, xs[0]), state,
-        (_slstm_x_pre(x, p, cfg).transpose(0, 1),))
+        lambda r, st, x_t: _slstm_step(r[0], st, x_t[0]), (p["r_zifo"],),
+        state, (_slstm_x_pre(x, p, cfg).transpose(0, 1),))
     out = _mm(hs.transpose(0, 1).reshape(b, s, d).to(x.dtype), p["w_out"])
     return out, _slstm_state(state)
 

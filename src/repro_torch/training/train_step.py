@@ -32,6 +32,7 @@ step's bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Tuple
 
@@ -44,6 +45,7 @@ from repro_torch.distributed import collectives as col
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.context import Mesh, ShardCtx, current, use_ctx
 from repro_torch.distributed.gather import gatherer
+from repro_torch.launch import op_count
 from repro_torch.models import transformer
 from repro_torch.models.transformer import tree_leaves, tree_map, tree_unflatten
 from repro_torch.params import resolve_device
@@ -110,13 +112,20 @@ def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
                for p in tree_leaves(params)]
         loss = torch.zeros((), dtype=torch.float32,
                            device=tree_leaves(params)[0].device)
-        for i in range(ga):
+        # inside the dry-run's counting the microbatches between the first
+        # and the last run once, counted ga - 2 times (launch/op_count.py)
+        counter = op_count.loop_counter() if ga > 2 else None
+        turns = ([(0, 1), (1, ga - 2), (ga - 1, 1)] if counter is not None
+                 else [(i, 1) for i in range(ga)])
+        for i, n in turns:
             micro = {k: x[i * mb:(i + 1) * mb] for k, x in batch.items()}
-            l, _, g = value_and_grad(params, micro, gather)
-            for a, gi in zip(acc, tree_leaves(g)):
-                a.add_(gi.to(adt))
-            del g
-            loss = loss + l
+            with (counter.repeat(n) if counter is not None
+                  else contextlib.nullcontext()):
+                l, _, g = value_and_grad(params, micro, gather)
+                for a, gi in zip(acc, tree_leaves(g)):
+                    a.add_(gi.to(adt))
+                del g
+                loss = loss + l
         for a in acc:
             a.div_(ga)
         return loss / ga, {}, tree_unflatten(params, acc)

@@ -5,12 +5,14 @@
 Every cell runs in a subprocess, as tests/test_distributed_integration.py
 runs the reference's, so the fake process group never becomes this
 process's default group: one subprocess traces the cells the tests below
-read (the contract cell, olmo-1b ``train_4k`` at grad_accum 1 and 4, and
-tiny steps on a (2, 4) fake mesh); another spawns eight gloo processes on
-a real (2, 4) mesh and counts the collectives those steps issue.  Only the
-cell configuration (``deploy_overrides``, ``applicable``,
-``train_config_for``) runs here, against the reference's functions
-called directly.
+read (the contract cell, olmo-1b ``train_4k`` at grad_accum 1 and 4, a
+recurrent ``prefill_32k`` cell through the command line, and tiny steps
+on a (2, 4) fake mesh); another spawns eight gloo processes on a real
+(2, 4) mesh and counts the collectives those steps issue; four more trace
+the recurrent archs' steps at S = 512 twice, with the scans' turns
+counted and with every turn run.  Only the cell configuration
+(``deploy_overrides``, ``applicable``, ``train_config_for``) and the
+plain mixers run here.
 """
 import contextlib
 import dataclasses
@@ -23,12 +25,14 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import configs as jconfigs
 from repro_torch import configs
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.context import ShapeMesh
-from repro_torch.launch import dryrun
+from repro_torch.launch import dryrun, op_count
+from repro_torch.models import ssm
 from repro_torch.models.transformer import tree_leaves
 from repro_torch.training import TrainConfig, init_train_state
 
@@ -87,6 +91,11 @@ CELLS = textwrap.dedent('''
         out[f"olmo2_{shape}"] = dryrun.run_cell(
             "olmo-1b", f"{shape}_32k", False, verbose=False, device="cpu",
             cfg_overrides={"n_layers": 2})
+    # a recurrent cell through the command line, its scans' turns counted
+    dryrun.main(["--arch", "xlstm-350m", "--shape", "prefill_32k", "--mesh",
+                 "single", "--device", "cpu", "--out", sys.argv[2]])
+    with open(sys.argv[2]) as fh:
+        out["recurrent_cli"] = json.load(fh)
     # the command line on both meshes in one process, then resumed
     path = sys.argv[1]
     argv = ["--arch", "xlstm-350m", "--shape", "long_500k", "--mesh", "both",
@@ -184,6 +193,49 @@ GLOO = textwrap.dedent('''
 ''' % (STEPS, STEP_SEQ, STEP_BATCH))
 
 
+# the recurrent steps traced with the scans' turns counted and with every
+# turn run, at S = 512 (four chunks of SCAN_CHUNK) on a (2, 4) fake mesh,
+# remat ``full``: tiny jamba; tiny xlstm-350m at its two block kinds
+# (train: one layer of each, in two processes; prefill: both in one
+# model), every trace of a full loop being one Python step a token; and
+# tiny olmo-1b at grad_accum 4, whose microbatches between the first and
+# the last are counted too.  (arch, block kinds or None, shapes,
+# grad_accum)
+LOOP_SEQ, LOOP_BATCH = 512, 8
+LOOP_CASES = {"xlstm-slstm": ("xlstm-350m", ("slstm",), ("train",), 1),
+              "xlstm-mlstm": ("xlstm-350m", ("mlstm",), ("train",), 1),
+              "jamba": ("jamba-1.5-large-398b", None, ("train", "prefill"),
+                        1),
+              "xlstm": ("xlstm-350m", ("slstm", "mlstm"), ("prefill",), 1),
+              "olmo-accum4": ("olmo-1b", None, ("train",), 4)}
+LOOPS = textwrap.dedent('''
+    import dataclasses, json, sys
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import Shape
+    from repro_torch.launch import dryrun
+    from repro_torch.training import TrainConfig
+
+    (arch, kinds, shapes, ga), SEQ, BATCH = %r[sys.argv[1]], %r, %r
+    cfg = dataclasses.replace(configs.get_tiny_config(arch),
+                              capacity_factor=16.0)
+    if kinds:
+        cfg = dataclasses.replace(cfg, n_layers=len(kinds), block_pattern=tuple(
+            (k, "none") for k in kinds))
+    out = {}
+    with dryrun.fake_mesh((2, 4), ("data", "model"), "cpu") as mesh:
+        for shape in shapes:
+            for loops in (True, False):
+                out[f"{shape}|{loops}"] = dryrun.trace_step(
+                    cfg, Shape("t", shape, SEQ, BATCH), mesh,
+                    tcfg=TrainConfig(remat="full", grad_accum=ga)
+                    if shape == "train" else None, dtype=torch.float32,
+                    device="cpu",
+                    loops=loops)
+    print(json.dumps(out))
+''' % (LOOP_CASES, LOOP_SEQ, LOOP_BATCH))
+
+
 def _env():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     env.pop("REPRO_GRAD_ACCUM", None)
@@ -193,27 +245,36 @@ def _env():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both subprocesses, side by side: the traced cells' results and the
-    gloo job's counts."""
+    """Every subprocess, side by side: the traced cells' results, the gloo
+    job's counts and the recurrent steps' traces."""
     tmp = tmp_path_factory.mktemp("gloo")
     (tmp / "worker.py").write_text(GLOO)
-    gloo = subprocess.Popen([sys.executable, str(tmp / "worker.py"),
-                             str(tmp)], env=_env(), stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    start = lambda *argv: subprocess.Popen(
+        [sys.executable, *argv], env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    gloo = start(str(tmp / "worker.py"), str(tmp))
+    loops = {case: start("-c", LOOPS, case) for case in LOOP_CASES}
     try:
         r = subprocess.run([sys.executable, "-c", CELLS,
-                            str(tmp / "dryrun.json")], env=_env(),
+                            str(tmp / "dryrun.json"),
+                            str(tmp / "recurrent.json")], env=_env(),
                            capture_output=True, text=True, timeout=TIMEOUT_S)
         assert r.returncode == 0, r.stderr[-3000:]
         _, err = gloo.communicate(timeout=TIMEOUT_S)
         assert gloo.returncode == 0, err[-3000:]
+        traces = {}
+        for case, proc in loops.items():
+            out, err = proc.communicate(timeout=TIMEOUT_S)
+            assert proc.returncode == 0, err[-3000:]
+            traces[case] = json.loads(out.strip().splitlines()[-1])
     finally:
-        gloo.kill()
-        gloo.wait()
+        for proc in (gloo, *loops.values()):
+            proc.kill()
+            proc.wait()
     lines = r.stdout.strip().splitlines()
     cells = json.loads(lines[-1])
     cells["main_printed"] = lines[:-1]
-    return cells, json.loads((tmp / "counts.json").read_text())
+    return cells, json.loads((tmp / "counts.json").read_text()), traces
 
 
 @pytest.fixture(scope="module")
@@ -224,6 +285,11 @@ def cells(runs):
 @pytest.fixture(scope="module")
 def gloo_counts(runs):
     return runs[1]
+
+
+@pytest.fixture(scope="module")
+def loop_traces(runs):
+    return runs[2]
 
 
 @pytest.fixture(scope="module")
@@ -446,3 +512,92 @@ def test_argument_is_the_local_shards(cells):
     assert mem["argument"] == local * (2 + 4 + 4) + 4 + batch
     assert mem["peak"] >= mem["argument"]
     assert mem["temp"] == mem["peak"] - mem["argument"]
+
+
+@pytest.mark.parametrize("case,shape", [(c, sh) for c, (_, _, shapes, _)
+                                        in LOOP_CASES.items()
+                                        for sh in shapes])
+def test_counted_turns_count_what_every_turn_counts(loop_traces, case,
+                                                    shape):
+    """The dry-run's trace with the scans' turns counted (each scan's
+    first and last turn run, the turns between once, every count made in
+    that turn multiplied by their number, forward and backward) counts
+    what the trace that runs every turn counts: the same FLOPs, bytes
+    accessed and collectives, count and bytes by kind, and a peak within
+    2 % (``MemTracker``), at S = 512 on the (2, 4) fake mesh: mLSTM,
+    sLSTM and Mamba layers, ``train_4k``'s remat ``full`` step (the
+    chunk checkpoints nested in the period's, PyTorch's early stop of
+    each) and prefill under ``no_grad``; and a step's microbatches at
+    grad_accum 4."""
+    got, want = (loop_traces[case][f"{shape}|{loops}"]
+                 for loops in (True, False))
+    assert got["flops"] == want["flops"] > 0
+    assert got["bytes_accessed"] == want["bytes_accessed"]
+    assert got["collective_counts"] == want["collective_counts"]
+    assert {k: v for k, v in got.items() if k.startswith("coll_")} == \
+        {k: v for k, v in want.items() if k.startswith("coll_")}
+    assert got["memory"]["argument"] == want["memory"]["argument"]
+    assert got["memory"]["peak"] == pytest.approx(want["memory"]["peak"],
+                                                  rel=0.02)
+
+
+class _Steps(TorchDispatchMode):
+    """Counts the one op each recurrent step runs once: mLSTM's ``num /
+    den``, and Mamba's state update ``da * s``, a product of the state's
+    shape."""
+
+    def __init__(self, mixer, state_shape):
+        super().__init__()
+        self.mixer, self.shape, self.n = mixer, state_shape, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (func is torch.ops.aten.div.Tensor if self.mixer == "mlstm" else
+                func is torch.ops.aten.mul.Tensor
+                and tuple(out.shape) == self.shape):
+            self.n += 1
+        return out
+
+
+@pytest.mark.parametrize("mixer", ["mlstm", "mamba"])
+def test_every_step_runs_outside_the_dry_runs_counting(mixer):
+    """The counted turns are the dry-run's alone: the plain
+    ``mlstm_prefill`` and ``mamba_prefill`` (S = 512, four chunks) run
+    all S steps with and without autograd, and so they do inside
+    ``op_count.counting()`` (which counts loops only when asked, as
+    ``trace_step`` asks); asked, the scan runs three turns a loop."""
+    arch = "xlstm-350m" if mixer == "mlstm" else "jamba-1.5-large-398b"
+    cfg = configs.get_tiny_config(arch)
+    p = getattr(ssm, f"init_{mixer}")(cfg, torch.Generator().manual_seed(0),
+                                       None, torch.float32, "cpu")
+    s = 4 * ssm.SCAN_CHUNK
+    x = torch.randn((2, s, cfg.d_model), requires_grad=True)
+    state = (2, cfg.mamba_d_inner, cfg.mamba_d_state)
+
+    def steps(grad, count=None):
+        mode = _Steps(mixer, state)
+        with torch.set_grad_enabled(grad), contextlib.ExitStack() as stack:
+            if count is not None:
+                stack.enter_context(op_count.counting(loops=count))
+            stack.enter_context(mode)
+            getattr(ssm, f"{mixer}_prefill")(x, p, cfg)
+        return mode.n
+    assert steps(False) == steps(True) == s
+    assert steps(True, count=False) == steps(False, count=False) == s
+    # asked: the first, one between and the last step of each chunk
+    # that runs (the first, the one between and the last chunk)
+    assert steps(False, count=True) == (3 if mixer == "mlstm" else 9)
+    assert steps(True, count=True) == 9
+
+
+def test_recurrent_cell_through_the_command_line(cells):
+    """xlstm-350m x prefill_32k, one of the recurrent cells that did not
+    trace before the scans' turns were counted (32768 Python steps a
+    layer), through ``main``: ok, the reference's keys, 24 layers of
+    mixers counted whole on every 'model' rank (the xLSTM mixers compute
+    whole, as the reference's DP-only recurrence), fitting 80 GB."""
+    r = cells["recurrent_cli"]["xlstm-350m|prefill_32k|single"]
+    assert r["status"] == "ok" and r["device"] == "cpu", r
+    assert r["fits_hbm"] and r["n_chips"] == 256
+    assert r["flops_per_device"] > r["analytic_flops_per_device"] > 0
+    assert r["collective_bytes_per_device"] == sum(r["collectives"].values())

@@ -9,7 +9,8 @@ within ``BF16_TOL`` in bf16.  Also: the leaves the reference keeps in f32
 stay f32 through both bridges, ``init_*`` shapes, dtypes and constants
 equal JAX's, and the decode cache's size does not depend on ``max_seq``.
 The constant leaves (``dt_bias``, ``D``, ``b_i``, ``b_f``, ``b_zifo``) are
-perturbed, so a port that ignored one would fail."""
+perturbed, so a port that ignored one would fail.  Under autograd the
+scans keep chunk-boundary states, not every step's (fault 3.3)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -256,3 +257,42 @@ def test_mamba_conv_is_a_sum_of_taps(monkeypatch):
     for what, t, j in out:
         np.testing.assert_allclose(_np(t), _np(j), rtol=TOL, atol=TOL,
                                    err_msg=what)
+
+
+@pytest.mark.parametrize("mixer", MIXERS)
+def test_backward_keeps_chunk_boundary_states_not_every_step(mixer):
+    """Fault 3.3's repair, read through ``saved_tensors_hooks``: at S =
+    1024 and 2048 the tensors of the decode state's shapes that autograd
+    keeps for one layer's backward (f32, tiny widths, batch 2) are the
+    carries into the S / ``SCAN_CHUNK`` chunks, one per chunk and state
+    leaf (8 and 16; sLSTM's four leaves share a shape), where the loop
+    without chunk checkpoints kept every step's (at least S per leaf).
+    The bound: the state bytes kept are at most S / SCAN_CHUNK times the
+    state's bytes; read here, 8 and 16 times them exactly: mLSTM 135,296
+    and 270,592 bytes, sLSTM 8,192 and 16,384, Mamba 90,112 and 180,224,
+    where the loop without chunk checkpoints kept 34.65 and 69.30 MB,
+    2.88 and 5.77 MB, 8.45 and 16.91 MB (each step's state)."""
+    cfg = configs.get_tiny_config(ARCH[mixer])
+    p = getattr(ssm, f"init_{mixer}")(cfg, torch.Generator().manual_seed(0),
+                                       None, torch.float32, "cpu")
+    for s in (1024, 2048):
+        x = torch.randn((2, s, cfg.d_model), requires_grad=True)
+        kept = {}
+
+        def pack(t):
+            kept[t.untyped_storage()._cdata] = (tuple(t.shape),
+                                               t.numel() * t.element_size())
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            y, cache = getattr(ssm, f"{mixer}_prefill")(x, p, cfg)
+        # the carries as the loop holds them (Mamba's conv tail time-major)
+        leaves = [tuple(v.shape) for v in cache.values()]
+        if mixer == "mamba":
+            leaves = [leaves[0], tuple(cache["conv"].transpose(0, 1).shape)]
+        state = [kb for shape, kb in kept.values() if shape in leaves]
+        n_chunks = s // ssm.SCAN_CHUNK
+        assert len(state) == n_chunks * len(leaves), (s, len(state))
+        state_bytes = sum(v.numel() * v.element_size()
+                          for v in cache.values())
+        assert sum(state) == n_chunks * state_bytes
+        assert y.shape == x.shape

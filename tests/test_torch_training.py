@@ -3,7 +3,8 @@
 
 * ``train_loss`` and every gradient leaf of all ten archs (loss to 1e-5
   relative; gradients to atol 1e-5 + rtol 1e-4, the reference's own
-  grad-accum tolerance, tests/test_training.py);
+  grad-accum tolerance, tests/test_training.py), and of the two
+  recurrent archs over four chunks of their scans, each rematerialised;
 * the training attention (dense and the chunked online softmax beyond
   2048 keys, self and cross), values and gradients;
 * the chunked unembed + CE against the dense one and JAX's;
@@ -43,7 +44,7 @@ from repro_torch import configs
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as tattn
-from repro_torch.models import get_model
+from repro_torch.models import get_model, ssm
 from repro_torch.models import transformer as tt
 from repro_torch.models.layers import (chunked_unembed_cross_entropy,
                                        cross_entropy)
@@ -134,9 +135,25 @@ def test_train_loss_and_every_gradient_match_jax(arch):
     2.5-13x the bare tolerance when the reference's weights move by one
     ulp, so no f32 implementation meets it there; the port lies closer to
     the reference than the reference to itself so moved."""
+    _check_loss_and_every_gradient(arch, seq_len=16)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_gradients_match_jax_over_four_chunks(arch):
+    """At S = 512, four chunks of ``SCAN_CHUNK``, the port's scans run
+    chunk by chunk with each chunk rematerialised (``checkpoint``), as the
+    reference's ``_chunked_seq_scan`` and ``mamba_prefill`` run theirs
+    under ``jax.checkpoint``: the loss and every gradient hold to JAX's
+    at the bounds of ``test_train_loss_and_every_gradient_match_jax``,
+    its measured widening included and no wider."""
+    assert 512 == 4 * ssm.SCAN_CHUNK
+    _check_loss_and_every_gradient(arch, seq_len=512)
+
+
+def _check_loss_and_every_gradient(arch, seq_len):
     jmodel, tree = bridged_params(arch)
     cfg = configs.get_tiny_config(arch)
-    batch = _batch(cfg)
+    batch = _batch(cfg, seq_len=seq_len)
     lj, pj, gj = _jax_grads(jmodel, tree, batch)
     lt, pt, gt = _port_grads(tree, batch, cfg)
     assert float(lt) == pytest.approx(float(lj), rel=LOSS_RTOL)
@@ -505,16 +522,21 @@ class _CountOps(TorchDispatchMode):
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-moe-30b-a3b",
                                   "jamba-1.5-large-398b",
-                                  "llama-3.2-vision-11b"])
+                                  "llama-3.2-vision-11b", "xlstm-350m"])
 def test_remat_policies_agree(arch):
     """``none``, ``full`` and ``dots`` give the same loss and gradients bit
     for bit.  In the backward pass ``full`` recomputes every period's 2-D
     products; ``dots`` keeps them and recomputes the rest (the softmax's
-    exp among it); ``none`` recomputes nothing."""
+    exp among it, or xlstm's log-sigmoid gates); ``none`` recomputes
+    nothing but the recurrent scans' chunks, which every policy
+    rematerialises alike (the chunk checkpoints nest in the period's, at
+    two chunks of ``SCAN_CHUNK`` where the arch has a scan)."""
     cfg = configs.get_tiny_config(arch)
     params = tt.init_params(cfg, generator=torch.Generator().manual_seed(0),
                             dtype=torch.float32, device="cpu")
-    batch = batch_to_device(_batch(cfg), "cpu")
+    scans = any(m in ("mamba", "mlstm", "slstm") for m, _ in cfg.block_pattern)
+    batch = batch_to_device(_batch(
+        cfg, seq_len=2 * ssm.SCAN_CHUNK if scans else 16), "cpu")
     out, counts = {}, {}
     for remat in ("none", "full", "dots"):
         aliases = tt.tree_map(lambda t: t.detach().requires_grad_(True),
@@ -529,8 +551,9 @@ def test_remat_policies_agree(arch):
                                                      out["none"][1]))
     mm = {r: c.get("mm", 0) for r, c in counts.items()}
     assert mm["dots"] == mm["none"] < mm["full"]
-    assert counts["dots"].get("_softmax", 0) > counts["none"].get(
-        "_softmax", 0)
+    redone = ("_softmax" if any(m == "attn" for m, _ in cfg.block_pattern)
+              else "softplus")
+    assert counts["dots"].get(redone, 0) > counts["none"].get(redone, 0)
 
 
 # --------------------------------------------------------------------------
