@@ -8,13 +8,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name and power limit, torch, the kernel build
    (``nvcc`` from the sources in this checkout), and per kernel (both
-   tensor-core kernels, decode, and the two CUDA-core kernels) its
+   tensor-core kernels, the wgmma flash kernel's instances at D 64, 80
+   and 128 each, decode, and the two CUDA-core kernels) its
    registers, stack, local memory and its HGMMA, UTMALDG, LDGSTS
    (cp.async) and FFMA instructions (``cuobjdump``);
 2. each attention kernel against its plain PyTorch version on the card
    at the serving path's shapes (B 1, Hq 32, Hkv 8, D 128; bf16 and f32;
    flash runs its wgmma kernel in bf16 and its CUDA-core kernel in f32,
-   and the CUDA-core kernel also at D 80 and 64; decode also at
+   both also at D 80, the wgmma kernel also at D 64, and at D 80 ragged
+   (S 37 rows at query offset 512, causal, against T 1000); decode also at
    deepseek-coder-33b's Hq 56; both in bf16 also at qwen3-moe-30b-a3b's
    Hq 32 over Hkv 4, decode's group of 8; in bf16 also at
    llama-3.2-vision-11b's cross-attention: flash non-causal at S 37 and
@@ -71,7 +73,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
     on full-width hubert-xlarge in bf16 (the first of 2048), each done
     after its prefill with no token, its logits at every position equal
     bit for bit to its isolated run's, flash once a prefill step on the
-    CUDA-core kernel at D 80, and no decode;
+    wgmma kernel's D 80 instance, and no decode;
 12. the training path (``train``): the flash wrapper refuses an input
     that requires grad; tiny olmo-1b, qwen3-8b, qwen3-moe-30b-a3b,
     xlstm-350m, jamba-1.5-large-398b, llama-3.2-vision-11b and
@@ -318,9 +320,11 @@ def _model_layout(gen, b, t, h, d, dtype):
     return x.transpose(1, 2)
 
 
-def flash_case(gen, dtype, s, causal, d=D, hkv=HKV, t=None, hq=HQ):
+def flash_case(gen, dtype, s, causal, d=D, hkv=HKV, t=None, hq=HQ,
+               q_offset=0):
     """S queries against T keys (T = S unless given: cross-attention's
-    S != T is non-causal)."""
+    S != T is non-causal; a causal S != T is a block of query rows at
+    ``q_offset``)."""
     from repro_torch.kernels.flash_attention import (bf16_tolerance,
                                                      flash_attention,
                                                      flash_attention_plain)
@@ -330,11 +334,12 @@ def flash_case(gen, dtype, s, causal, d=D, hkv=HKV, t=None, hq=HQ):
     q = _model_layout(gen, B, s, hq, d, dtype)
     k = _model_layout(gen, B, t, hkv, d, dtype)
     v = _model_layout(gen, B, t, hkv, d, dtype)
-    out = flash_attention(q, k, v, causal)
-    ref = flash_attention_plain(*as_f32(q, k, v), causal)
+    out = flash_attention(q, k, v, causal, q_offset)
+    ref = flash_attention_plain(*as_f32(q, k, v), causal, q_offset)
     variant = kernel_variant(dtype, d)
     if variant == "wgmma":
-        bound, tol_name = bf16_tolerance(q, k, v, causal), "bf16_tolerance"
+        bound = bf16_tolerance(q, k, v, causal, q_offset)
+        tol_name = "bf16_tolerance"
     else:
         bound, tol_name = tolerance(ref, TOL[dtype]), f"{TOL[dtype]}"
     ratio = over_tol(out, ref, bound)
@@ -343,21 +348,30 @@ def flash_case(gen, dtype, s, causal, d=D, hkv=HKV, t=None, hq=HQ):
     sets = [(q, k, v)] + [tuple(_model_layout(gen, B, n, h, d, dtype)
                                 for n, h in ((s, hq), (t, hkv), (t, hkv)))
                           for _ in range(n_copies(nbytes(q, k, v)) - 1)]
-    pairs = s * (s + 1) // 2 if causal else s * t
+    # the (query, key) pairs these inputs need: row i sees keys up to
+    # i + q_offset when causal
+    pairs = (sum(min(t, i + q_offset + 1) for i in range(s)) if causal
+             else s * t)
     ops = 4 * B * hq * d * pairs
+    mask = None
+    if causal and (q_offset or s != t):    # SDPA's is_causal aligns top-left
+        mask = (torch.arange(t, device="cuda")[None, :]
+                <= torch.arange(s, device="cuda")[:, None] + q_offset)
     moved = nbytes(q, k, v, out)
     t_ops, t_bytes = ops / PEAK_OPS[dtype], moved / HBM_BYTES_PER_S
     row = dict(
         kernel="flash_attention", variant=variant,
         dtype=str(dtype).split(".")[1], D=d, Hq=hq, Hkv=hkv, S=s, T=t,
-        causal=causal,
+        causal=causal, **({"q_offset": q_offset} if q_offset else {}),
         max_abs_err=err, tolerance=tol_name, err_over_tol=ratio,
         ok=ratio <= 1.0,
-        ms=time_ms(lambda a, b_, c: flash_attention(a, b_, c, causal), sets),
-        plain_ms=time_ms(lambda a, b_, c: flash_attention_plain(a, b_, c,
-                                                                causal), sets),
+        ms=time_ms(lambda a, b_, c: flash_attention(a, b_, c, causal,
+                                                    q_offset), sets),
+        plain_ms=time_ms(lambda a, b_, c: flash_attention_plain(
+            a, b_, c, causal, q_offset), sets),
         library_ms=time_ms(lambda a, b_, c: F.scaled_dot_product_attention(
-            a, b_, c, is_causal=causal, enable_gqa=True), sets),
+            a, b_, c, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True), sets),
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes")
     return row
@@ -452,14 +466,20 @@ def phase_kernels():
         # deepseek-coder-33b's group of 7 query heads per KV head
         rows.append(decode_case(gen, dtype, 2560, 2048, hq=56))
         emit("kernel_check", **rows[-1])
-    # the CUDA-core flash kernel at other head widths: hubert-xlarge's 80
-    # in both types, and 64 in bf16
+    # flash at the other head widths: hubert-xlarge's 80 in bf16 (the
+    # wgmma kernel's D 80 instance) and f32 (the CUDA-core kernel), and 64
+    # in bf16 (the D 64 instance)
     for dtype, d, s, causal in ((torch.bfloat16, 80, 2048, True),
                                 (torch.bfloat16, 80, 37, False),
                                 (torch.float32, 80, 2048, True),
                                 (torch.bfloat16, 64, 1024, True)):
         rows.append(flash_case(gen, dtype, s, causal, d))
         emit("kernel_check", **rows[-1])
+    # the D 80 instance ragged on both sides, Hq 32 over Hkv 8, causal at a
+    # query offset: S 37 rows from 512 on against T 1000 keys
+    rows.append(flash_case(gen, torch.bfloat16, 37, True, 80, t=1000,
+                           q_offset=512))
+    emit("kernel_check", **rows[-1])
     # qwen3-moe-30b-a3b's layout, 32 query heads over 4 KV heads: flash
     # at Hkv 4 and decode's group of 8
     rows.append(flash_case(gen, torch.bfloat16, 2048, True, hkv=4))
@@ -746,13 +766,20 @@ def _counters():
 
 def _launches():
     """Launches per kernel: ``wrapper/variant`` where a wrapper has two
-    kernels, whose counts must add up to the wrapper's own; and
-    ``wrapper:mode``, those of its launches in a mode (flash at a query
-    offset, decode writing its log-sum-exp)."""
+    kernels, whose counts must add up to the wrapper's own;
+    ``wrapper/variant/width``, flash's by instance, which must add up to
+    the same; and ``wrapper:mode``, those of its launches in a mode (flash
+    at a query offset, decode writing its log-sum-exp)."""
     out = {}
     for name, mod in _counters().items():
         out.update({f"{name}:{m}": n
                     for m, n in getattr(mod, "mode_launches", {}).items()})
+        widths = getattr(mod, "width_launches", None)
+        if widths is not None:
+            if sum(widths.values()) != mod.launches:
+                raise SystemExit(f"{name}: {mod.launches} launches, by "
+                                 f"width {widths}")
+            out.update({f"{name}/{w}": n for w, n in widths.items()})
         by = getattr(mod, "variant_launches", None)
         if by is None:
             out[name] = mod.launches
@@ -768,6 +795,7 @@ def _reset_launches():
     for mod in _counters().values():
         mod.launches = 0
         for counts in (getattr(mod, "variant_launches", {}),
+                       getattr(mod, "width_launches", {}),
                        getattr(mod, "mode_launches", {})):
             for v in counts:
                 counts[v] = 0
@@ -811,8 +839,8 @@ def _check_launches(cfg, dtype, counts, where):
 
 
 def _check_models_launches(cfgs: dict, dtype, counts: dict, where: str):
-    """Prefill launches all on the flash kernel of this dtype and each
-    model's head width, none on the other, once per self- or
+    """Prefill launches all on the flash kernel (and its instance) of this
+    dtype and each model's head width, none on the other, once per self- or
     cross-attention block and period; decode once per such block and
     step; ``counts`` holds each model's steps (by its name in ``cfgs``),
     every model prefilled."""
@@ -821,8 +849,9 @@ def _check_models_launches(cfgs: dict, dtype, counts: dict, where: str):
     for name, c in counts.items():
         cfg = cfgs[name]
         attn = sum(m in ("attn", "cross_attn") for m, _ in cfg.block_pattern)
-        expect[f"flash_attention/{kernel_variant(dtype, cfg.d_head)}"] += (
-            c["prefill"] * attn)
+        variant = kernel_variant(dtype, cfg.d_head)
+        for key in (variant, f"{variant}/{cfg.d_head}") if attn else ():
+            expect[f"flash_attention/{key}"] += c["prefill"] * attn
         expect["decode_attention"] += c["decode"] * attn * cfg.n_periods
     got = _launches()
     if (got != expect or set(counts) != set(cfgs)
@@ -1041,7 +1070,8 @@ def phase_serve_vlm_audio(card: str):
     GELU, vocab 504) in bf16: 3 requests of frames, the first of 2048;
     each done after its prefill with no token and its engine run's logits
     at every position equal bit for bit to its isolated run's; flash
-    once a prefill step, all on the CUDA-core kernel (D 80), no decode.
+    once a prefill step, all on the wgmma kernel's D 80 instance, no
+    decode.
     Every earlier model is freed first."""
     total = _no_launches()
     for arch, n in (("llama-3.2-vision-11b", 4), ("hubert-xlarge", 3)):
@@ -2488,6 +2518,7 @@ def sharded_qwen(card: str) -> tuple:
     attn = sum(m == "attn" for m, _ in cfg.block_pattern) * cfg.n_periods
     # one prefill and SHARDED_STEPS decode steps: every launch counted
     want = {**_no_launches(), "flash_attention/wgmma": attn,
+            f"flash_attention/wgmma/{cfg.d_head}": attn,
             "decode_attention": SHARDED_STEPS * attn,
             "decode_attention:lse": SHARDED_STEPS * attn}
     row = dict(
@@ -2803,11 +2834,14 @@ def phase_examples(card: str):
 
 
 # the kernels whose compiled code phase 1 reports: name -> a pattern of
-# its mangled name (the decode kernel at bf16, D 128, groups up to 4; the
-# CUDA-core GEMM on its 16-byte path, and flash at f32, D 128)
+# its mangled name (each instance of the wgmma flash kernel; the decode
+# kernel at bf16, D 128, groups up to 4; the CUDA-core GEMM on its 16-byte
+# path, and flash at f32, D 128)
 COMPILED_KERNELS = {
     "gemm_resume_wgmma_kernel": "gemm_resume_wgmma_kernel",
-    "flash_fwd_wgmma_kernel": "flash_fwd_wgmma_kernel",
+    "flash_fwd_wgmma_kernel<64>": r"flash_fwd_wgmma_kernelILi64E",
+    "flash_fwd_wgmma_kernel<80>": r"flash_fwd_wgmma_kernelILi80E",
+    "flash_fwd_wgmma_kernel<128>": r"flash_fwd_wgmma_kernelILi128E",
     "decode_split_kernel<bf16,128,4>":
         r"decode_split_kernelI\w*bfloat16Li128ELi4E",
     "gemm_resume_simt_kernel<vec>": r"gemm_resume_simt_kernelILb1E",
@@ -2848,12 +2882,19 @@ def compiled_kernels(lib_path: Path):
 PHASES = ("kernels", "gemm", "tiny", "serve", "serve_f32", "path",
           "serve_moe", "serve_dense", "serve_ssm", "serve_vlm_audio", "train",
           "distributed", "dryrun", "serve_sharded", "examples")
-# the kernels line: name, launch counter, source, TPU kernel, headline row
+# the kernels line: name, launch counter (``wrapper/variant``, or
+# ``wrapper/variant/width`` for one instance), source, TPU kernel, headline
+# row
 KERNELS = [
-    ("flash_attention_wgmma_bf16", "flash_attention/wgmma",
+    ("flash_attention_wgmma_bf16", "flash_attention/wgmma/128",
      "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:90",
      dict(kernel="flash_attention", dtype="bfloat16", D=D, Hkv=HKV, S=2048,
           causal=True)),
+    # hubert-xlarge's prefill
+    ("flash_attention_wgmma_bf16_d80", "flash_attention/wgmma/80",
+     "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:90",
+     dict(kernel="flash_attention", dtype="bfloat16", D=80, Hq=16, Hkv=16,
+          S=2048, causal=False)),
     ("flash_attention_cuda_core_f32", "flash_attention/cuda_core",
      "flash_attention.cu", "src/repro/kernels/flash_attention/kernel.py:90",
      dict(kernel="flash_attention", dtype="float32", D=D, Hkv=HKV, S=2048,
@@ -2905,9 +2946,10 @@ def _mode(name, launches):
 def kernels_line(rows, launches):
     kernels = []
     for name, counter, src, replaces, head_at in KERNELS:
-        variant = counter.partition("/")[2]
+        _, variant, width = (counter.split("/") + ["", ""])[:3]
         mine = [r for r in rows if r["kernel"] == head_at["kernel"]
-                and (not variant or r["variant"] == variant)]
+                and (not variant or r["variant"] == variant)
+                and (not width or r["D"] == int(width))]
         head = next(r for r in mine
                     if all(r.get(k) == v for k, v in head_at.items()))
         kernels.append(dict(

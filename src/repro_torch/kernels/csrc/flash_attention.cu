@@ -21,24 +21,32 @@
 //
 // Two kernels, chosen by the wrapper by dtype and head width:
 //
-// * bf16 with D = 128, flash_fwd_wgmma_kernel: the tensor cores, in the
-//   outline of FlashAttention-3.  A block owns 128 query rows of one head:
-//   TMA loads over 4-D maps (D, S, H, B) of the strided tensors (Q once;
-//   K and V tiles of 128 keys into a ring of 2 stages, each row as two
-//   64-column boxes of the 128-byte swizzle), and two warpgroups of 64 rows
-//   that run
-//   S = Q K^T as wgmma m64n128k16 from shared memory (K as a K-major B),
+// * bf16 with D in {64, 80, 128}, flash_fwd_wgmma_kernel<D>: the tensor
+//   cores, in the outline of FlashAttention-3.  A block owns 128 query rows
+//   of one head: TMA loads over 4-D maps (D, S, H, B) of the strided
+//   tensors (Q once; K and V tiles of 128 keys into a ring of 2 stages,
+//   each row as two 64-column boxes of the 128-byte swizzle), and two
+//   warpgroups of 64 rows that run
+//   S = Q K^T as D / 16 steps of wgmma m64n128k16 from shared memory (K as
+//   a K-major B),
 //   the online softmax on the f32 accumulator (a row lives in the 4 lanes
-//   of a quad), and O += P V as wgmma m64n128k16 with P from registers in
+//   of a quad), and O += P V as wgmma m64nDk16 with P from registers in
 //   bf16 (V as an MN-major B).  P is rounded to bf16 for that product, as
 //   the JAX model rounds it to q's type; l sums the f32 P.  The output goes
 //   through shared memory and leaves in 16-byte stores.  There is no
 //   producer warp: thread 0 refills a stage as soon as both warpgroups are
 //   done with it.  A ninth warp would put three warps on one of the SM's
 //   four register files and cap every thread at 168 registers, fewer than
-//   the two accumulators (S and O, 64 each), the P fragments and the
-//   addressing want; with 8 warps a thread may hold 255.
-// * f32, and bf16 at other head widths (8, 16, 32, 64, 80),
+//   the two accumulators (S and O, 64 each at D = 128), the P fragments
+//   and the addressing want; with 8 warps a thread may hold 255.
+//   The narrower widths keep D = 128's shared-memory layout: the maps'
+//   innermost extent is D, so at D = 80 TMA fills columns 80..127 of the
+//   second box with zeros (and reads nothing past D from memory), and the
+//   products never read them: S takes 5 k16 steps, the fifth at the start
+//   of the second box, and P V at N = 80 reads that box's first 16
+//   columns.  D = 64 loads the first box alone.  The products then do
+//   exactly D's work; O holds D / 2 registers a thread.
+// * f32 at every width, and bf16 at D 8, 16 and 32 (the tiny configs),
 //   flash_fwd_simt_kernel: the f32 CUDA cores, one fmaf per product (TF32
 //   would miss the f32 tolerance), so the bound is the 67 TFLOP/s of f32
 //   FMA and the design feeds the FMA units.  A block of 8 warps owns 128
@@ -55,6 +63,7 @@
 //   them more warps, do not fit beside double-buffered 64-key K and V
 //   tiles; each warp instead keeps 32 independent sums in flight.
 #include <cuda.h>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -75,7 +84,7 @@ struct FlashParams {
 };
 
 // --------------------------------------------------------------------------
-// f32, and bf16 at head widths other than 128: the CUDA cores
+// f32, and bf16 at D 8, 16, 32: the CUDA cores
 // --------------------------------------------------------------------------
 namespace simt {
 
@@ -362,44 +371,63 @@ cudaError_t launch_d(const FlashParams& p, int B, int Hq, int D,
     case 8: return launch<T, 8>(p, B, Hq, stream);
     case 16: return launch<T, 16>(p, B, Hq, stream);
     case 32: return launch<T, 32>(p, B, Hq, stream);
-    case 64: return launch<T, 64>(p, B, Hq, stream);
-    case 80: return launch<T, 80>(p, B, Hq, stream);
-    case 128: return launch<T, 128>(p, B, Hq, stream);
-    default: return cudaErrorInvalidValue;
   }
+  // bf16 at the wider widths runs the wgmma kernel
+  if constexpr (std::is_same_v<T, float>) {
+    switch (D) {
+      case 64: return launch<T, 64>(p, B, Hq, stream);
+      case 80: return launch<T, 80>(p, B, Hq, stream);
+      case 128: return launch<T, 128>(p, B, Hq, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace simt
 
 // --------------------------------------------------------------------------
-// bf16, D = 128: wgmma fed by TMA
+// bf16, D in {64, 80, 128}: wgmma fed by TMA
 // --------------------------------------------------------------------------
 namespace wg {
 
 using namespace hopper;
 
-constexpr int D = 128;
 constexpr int BQ = 128;                     // query rows per block
 constexpr int BT = 128;                     // keys per tile
 constexpr int NT = 256;                     // 2 warpgroups
 constexpr int BOX_BYTES = 128 * 64 * 2;     // 128 rows of 64 columns
-constexpr int TILE_BYTES = 2 * BOX_BYTES;   // 128 rows of D = 128
-constexpr int OS_STRIDE = D + 8;            // output staging row, elements
-constexpr int OS_BYTES = 64 * OS_STRIDE * 2;   // one warpgroup's 64 rows
+constexpr int TILE_BYTES = 2 * BOX_BYTES;   // 128 rows of 128 columns
 constexpr int WARPS = NT / 32;              // each frees a stage once
-// Q | K0 | V0 | K1 | V1 | output staging x 2 | barriers
-constexpr size_t BAR_OFFSET = 5 * TILE_BYTES + 2 * OS_BYTES;
-constexpr size_t SMEM_BYTES = BAR_OFFSET + 7 * sizeof(uint64_t) + 1024;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The shared-memory layout is that of D = 128 at every width: a tile's row
+// is two 64-column boxes, of which D = 80 fills 80 columns (TMA writes
+// zeros past D) and D = 64 loads the first box alone.
+template <int D>
+struct Shape {
+  static_assert(D == 64 || D == 80 || D == 128, "no wgmma flash at this D");
+  static constexpr int BOXES = (D + 63) / 64;   // boxes a row loads
+  // bytes a tile's loads complete on its barrier: whole boxes, their
+  // zero-filled columns included
+  static constexpr int LOAD_BYTES = BOXES * BOX_BYTES;
+  static constexpr int OS_STRIDE = D + 8;       // output staging row
+  static constexpr int OS_BYTES = 64 * OS_STRIDE * 2;   // a warpgroup's
+  // Q | K0 | V0 | K1 | V1 | output staging x 2 | barriers
+  static constexpr size_t BAR_OFFSET = 5 * TILE_BYTES + 2 * OS_BYTES;
+  static constexpr size_t SMEM_BYTES = BAR_OFFSET + 7 * sizeof(uint64_t) +
+                                       1024;
+};
+
+template <int D>
 __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap map_q,
     const __grid_constant__ CUtensorMap map_k,
     const __grid_constant__ CUtensorMap map_v, const FlashParams p) {
+  using Sh = Shape<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
   uint8_t* q_tile = smem;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + BAR_OFFSET);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + Sh::BAR_OFFSET);
   uint64_t* q_full = bars;           // [1]
   uint64_t* k_full = bars + 1;       // [2]
   uint64_t* v_full = bars + 3;       // [2]
@@ -418,12 +446,14 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
     uint64_t* kf = &k_full[it % 2];
     uint64_t* vf = &v_full[it % 2];
     const int k0 = it * BT;
-    mbar_expect_tx(kf, TILE_BYTES);
-    tma_load_4d(kt, &map_k, kf, 0, k0, hk, b);
-    tma_load_4d(kt + BOX_BYTES, &map_k, kf, 64, k0, hk, b);
-    mbar_expect_tx(vf, TILE_BYTES);
-    tma_load_4d(vt, &map_v, vf, 0, k0, hk, b);
-    tma_load_4d(vt + BOX_BYTES, &map_v, vf, 64, k0, hk, b);
+    mbar_expect_tx(kf, Sh::LOAD_BYTES);
+#pragma unroll
+    for (int x = 0; x < Sh::BOXES; ++x)
+      tma_load_4d(kt + x * BOX_BYTES, &map_k, kf, 64 * x, k0, hk, b);
+    mbar_expect_tx(vf, Sh::LOAD_BYTES);
+#pragma unroll
+    for (int x = 0; x < Sh::BOXES; ++x)
+      tma_load_4d(vt + x * BOX_BYTES, &map_v, vf, 64 * x, k0, hk, b);
   };
 
   if (threadIdx.x == 0) {
@@ -437,9 +467,10 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_expect_tx(q_full, TILE_BYTES);
-    tma_load_4d(q_tile, &map_q, q_full, 0, q0, h, b);
-    tma_load_4d(q_tile + BOX_BYTES, &map_q, q_full, 64, q0, h, b);
+    mbar_expect_tx(q_full, Sh::LOAD_BYTES);
+#pragma unroll
+    for (int x = 0; x < Sh::BOXES; ++x)
+      tma_load_4d(q_tile + x * BOX_BYTES, &map_q, q_full, 64 * x, q0, h, b);
     for (int it = 0; it < min(2, n_tiles); ++it) load_tile(it);
   }
   __syncwarp();
@@ -452,9 +483,9 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
   // causal bounds: the last key each of the thread's two rows sees
   const int rows[2] = {q0 + lr0 + p.q_offset, q0 + lr0 + 8 + p.q_offset};
   const float scale = p.scale * kLog2e;     // scores in log2 units
-  float o[64], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[D / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 
   mbar_wait(q_full, 0);
   for (int it = 0; it < n_tiles; ++it) {
@@ -463,7 +494,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
     const uint8_t* kt = smem + (1 + 2 * s) * TILE_BYTES;
     const uint8_t* vt = kt + TILE_BYTES;
 
-    // S = Q K^T: D = 128 in 8 k16 steps, 4 per 64-column box
+    // S = Q K^T: D / 16 k16 steps, 4 per 64-column box; at D = 80 step 4
+    // reads the second box's first 16 columns, never its zeros
     float sc[64];
     mbar_wait(&k_full[s], parity);
     wgmma_fence();
@@ -517,7 +549,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
       l[hh] = alpha[hh] * l[hh] + rs;   // this thread's columns only
     }
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       o[4 * j] *= alpha[0];
       o[4 * j + 1] *= alpha[0];
       o[4 * j + 2] *= alpha[1];
@@ -530,7 +562,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
 #pragma unroll
     for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
 
-    // O += P V: 128 keys in 8 k16 steps of 16 rows of V
+    // O += P V at N = D: 128 keys in 8 k16 steps of 16 rows of V; at D = 80
+    // the product reads the first box's 64 columns and the second's 16
     mbar_wait(&v_full[s], parity);
     wgmma_fence();
     fence_regs(o);
@@ -538,8 +571,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
     for (int kk = 0; kk < BT / 16; ++kk) {
       const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                              pa[4 * kk + 3]};
-      wgmma_m64n128k16_rs<1>(o, a, desc_mn_major(vt + kk * 2048, BOX_BYTES),
-                             1);
+      wgmma_m64nNk16_rs<D, 1>(o, a, desc_mn_major(vt + kk * 2048, BOX_BYTES),
+                              1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -555,8 +588,9 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
 
   // epilogue: normalise, stage the warpgroup's 64 rows in shared memory,
   // leave in 16-byte stores masked on ragged S
-  __nv_bfloat16* os =
-      reinterpret_cast<__nv_bfloat16*>(smem + 5 * TILE_BYTES + w * OS_BYTES);
+  constexpr int OS_STRIDE = Sh::OS_STRIDE;
+  __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(
+      smem + 5 * TILE_BYTES + w * Sh::OS_BYTES);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
@@ -564,7 +598,7 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
     const float denom = fmaxf(l[hh], 1e-30f);
     const int r = 16 * warp + lane / 4 + 8 * hh;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const int c = 8 * j + 2 * (lane % 4);
       *reinterpret_cast<__nv_bfloat162*>(&os[r * OS_STRIDE + c]) =
           __floats2bfloat162_rn(o[4 * j + 2 * hh] / denom,
@@ -574,6 +608,8 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
   warpgroup_sync(1 + w);
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + b * p.so[0] +
                        h * p.so[1];
+  // 64 rows of D / 8 16-byte chunks: 5 a thread at D = 80
+  static_assert(64 * D / 8 % 128 == 0, "chunks do not split evenly");
 #pragma unroll
   for (int i = 0; i < 64 * D / 8 / 128; ++i) {
     const int chunk = t + 128 * i, r = chunk / (D / 8);
@@ -584,12 +620,14 @@ __global__ void __launch_bounds__(NT, 1) flash_fwd_wgmma_kernel(
   }
 }
 
+template <int D>
 cudaError_t launch(const FlashParams& p, int B, int Hq, int Hkv,
                    cudaStream_t stream) {
-  if (p.sq[3] != 1 || p.sk[3] != 1 || p.sv[3] != 1 || p.so[3] != 1)
-    return cudaErrorInvalidValue;
+  constexpr size_t smem = Shape<D>::SMEM_BYTES;
+  static_assert(smem <= 232448, "more shared memory than a block may use");
   CUtensorMap map_q, map_k, map_v;
-  // dims (D, S, H, B); strides of S, H, B
+  // dims (D, S, H, B); strides of S, H, B.  A box of 64 columns that runs
+  // past D (the second at D = 80) is filled with zeros past it.
   const long long dq[4] = {D, p.s_len, Hq, B}, dk[4] = {D, p.t_len, Hkv, B};
   const long long st_q[3] = {p.sq[2], p.sq[1], p.sq[0]},
                   st_k[3] = {p.sk[2], p.sk[1], p.sk[0]},
@@ -599,14 +637,26 @@ cudaError_t launch(const FlashParams& p, int B, int Hq, int Hkv,
   if (err == cudaSuccess) err = make_bf16_map(&map_k, p.k, 4, dk, st_k, box);
   if (err == cudaSuccess) err = make_bf16_map(&map_v, p.v, 4, dk, st_v, box);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel,
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(SMEM_BYTES));
+                               static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.s_len + BQ - 1) / BQ, Hq, B);
-  flash_fwd_wgmma_kernel<<<grid, NT, SMEM_BYTES, stream>>>(map_q, map_k,
-                                                           map_v, p);
+  flash_fwd_wgmma_kernel<D><<<grid, NT, smem, stream>>>(map_q, map_k, map_v,
+                                                        p);
   return cudaGetLastError();
+}
+
+cudaError_t launch_d(const FlashParams& p, int B, int Hq, int Hkv, int D,
+                     cudaStream_t stream) {
+  if (p.sq[3] != 1 || p.sk[3] != 1 || p.sv[3] != 1 || p.so[3] != 1)
+    return cudaErrorInvalidValue;
+  switch (D) {
+    case 64: return launch<64>(p, B, Hq, Hkv, stream);
+    case 80: return launch<80>(p, B, Hq, Hkv, stream);
+    case 128: return launch<128>(p, B, Hq, Hkv, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace wg
@@ -644,9 +694,10 @@ FlashParams make_params(const void* q, const void* k, const void* v, void* o,
 // j <= i + q_offset (q_offset >= 0; 0 for a whole sequence).  Launches on
 // `stream`; returns cudaGetLastError().
 //
-// The CUDA-core kernel: f32 or bf16, D in {8, 16, 32, 64, 80, 128}, unit
-// innermost strides, the other strides multiples of 16 bytes and 16-byte
-// aligned bases (its rows are read and written in 16-byte pieces).
+// The CUDA-core kernel: f32 with D in {8, 16, 32, 64, 80, 128}, or bf16
+// with D in {8, 16, 32} (any other is refused with cudaErrorInvalidValue),
+// unit innermost strides, the other strides multiples of 16 bytes and
+// 16-byte aligned bases (its rows are read and written in 16-byte pieces).
 extern "C" int prema_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* o, int B, int Hq,
                                      int Hkv, int S, int T, int D,
@@ -666,20 +717,21 @@ extern "C" int prema_flash_attention(int dtype, const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// The wgmma kernel: bf16, D = 128, unit innermost strides, the other
-// strides multiples of 8 elements and 16-byte aligned bases (what TMA reads
-// and the epilogue's 16-byte stores write).
+// The wgmma kernel: bf16, D in {64, 80, 128} (any other D is refused with
+// cudaErrorInvalidValue), unit innermost strides, the other strides
+// multiples of 8 elements and 16-byte aligned bases (what TMA reads and the
+// epilogue's 16-byte stores write).
 extern "C" int prema_flash_attention_wgmma(const void* q, const void* k,
                                            const void* v, void* o, int B,
                                            int Hq, int Hkv, int S, int T,
-                                           const long long* strides,
+                                           int D, const long long* strides,
                                            float scale, int causal,
                                            int q_offset, void* stream) {
   using namespace prema;
   const FlashParams p =
       make_params(q, k, v, o, Hq, Hkv, S, T, strides, scale, causal, q_offset);
   return static_cast<int>(
-      wg::launch(p, B, Hq, Hkv, static_cast<cudaStream_t>(stream)));
+      wg::launch_d(p, B, Hq, Hkv, D, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* prema_error_string(int err) {

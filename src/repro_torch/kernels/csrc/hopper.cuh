@@ -1,7 +1,7 @@
 // Hopper primitives of the tensor-core kernels (sm_90a): TMA tensor maps
 // and loads, mbarriers, wgmma shared-memory descriptors for the 128-byte
-// swizzle, and the m64n128k16 bf16 -> f32 products in both forms (A from
-// shared memory, A from registers).
+// swizzle, and the bf16 -> f32 products m64n128k16 with A from shared
+// memory and m64nNk16 (N 64, 80, 128) with A from registers.
 //
 // Layout conventions, shared by the TMA maps and the descriptors:
 //
@@ -250,12 +250,22 @@ __device__ __forceinline__ void wgmma_wait() {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
   "%58, %59, %60, %61, %62, %63}"
+#define PREMA_ACC_REGS40                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}"
+#define PREMA_ACC_REGS32                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
 #define PREMA_ACC8(b)                                                        \
   "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),                \
       "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+#define PREMA_ACC32                                                          \
+  PREMA_ACC8(0), PREMA_ACC8(8), PREMA_ACC8(16), PREMA_ACC8(24)
+#define PREMA_ACC40 PREMA_ACC32, PREMA_ACC8(32)
 #define PREMA_ACC64                                                          \
-  PREMA_ACC8(0), PREMA_ACC8(8), PREMA_ACC8(16), PREMA_ACC8(24),              \
-      PREMA_ACC8(32), PREMA_ACC8(40), PREMA_ACC8(48), PREMA_ACC8(56)
+  PREMA_ACC32, PREMA_ACC8(32), PREMA_ACC8(40), PREMA_ACC8(48), PREMA_ACC8(56)
 
 // d (64 x 128, f32) = A (64 x 16) @ B (16 x 128) + (accumulate ? d : 0),
 // A and B bf16 in shared memory.  A is K-major; B is K-major (TransB 0) or
@@ -273,26 +283,52 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TransB));
 }
 
-// The same with A from registers: four 32-bit registers of bf16 pairs in
-// the accumulator's positions (a[0]: row l/4, columns 2(l%4) + {0,1};
-// a[1]: row + 8; a[2], a[3]: the same, columns + 8).
-template <int TransB>
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t desc_b,
-                                                    int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PREMA_ACC_REGS
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : PREMA_ACC64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TransB));
+// d (64 x N, f32) = A (64 x 16) @ B (16 x N) + (accumulate ? d : 0), N one
+// of 64, 80, 128 (32, 40, 64 accumulator registers), with A from registers:
+// four 32-bit registers of bf16 pairs in the accumulator's positions
+// (a[0]: row l/4, columns 2(l%4) + {0,1}; a[1]: row + 8; a[2], a[3]: the
+// same, columns + 8).  B in shared memory, K-major (TransB 0) or MN-major
+// (TransB 1).
+template <int N, int TransB>
+__device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[N / 2],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc_b,
+                                                  int accumulate) {
+  static_assert(N == 64 || N == 80 || N == 128, "no instance at this N");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        PREMA_ACC_REGS ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : PREMA_ACC64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  } else if constexpr (N == 80) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %45, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        PREMA_ACC_REGS40 ", {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+        : PREMA_ACC40
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        PREMA_ACC_REGS32 ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : PREMA_ACC32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+          "r"(accumulate), "n"(TransB));
+  }
 }
 
 #undef PREMA_ACC64
+#undef PREMA_ACC40
+#undef PREMA_ACC32
 #undef PREMA_ACC8
 #undef PREMA_ACC_REGS
+#undef PREMA_ACC_REGS40
+#undef PREMA_ACC_REGS32
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -37,9 +37,10 @@ _SIGNATURES = {
     # strides, scale, stream
     "prema_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _S, _F, _P],
-    # q, k, v, o, B, Hq, Hkv, S, T, strides, scale, causal, q_offset, stream
-    "prema_flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _S,
-                                    _F, _I, _I, _P],
+    # q, k, v, o, B, Hq, Hkv, S, T, D, strides, scale, causal, q_offset,
+    # stream
+    "prema_flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _S, _F, _I, _I, _P],
     # dtype, x, y, acc_in, acc_out, M, N, accM, accN, lo, hi, strides, stream
     "prema_matmul_resumable": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S,
                                _P],

@@ -1,9 +1,11 @@
 """Wrapper of the flash-attention kernels (``csrc/flash_attention.cu``).
 
 Two kernels, chosen by :func:`kernel_variant` from the dtype and the head
-width alone: ``"wgmma"`` (tensor cores fed by TMA) for bf16 at D = 128,
-``"cuda_core"`` for f32 and for bf16 at the other widths of
-``HEAD_DIMS``.
+width alone: ``"wgmma"`` (tensor cores fed by TMA) for bf16 at the widths
+of ``WGMMA_HEAD_DIMS`` (64, 80, 128),
+``"cuda_core"`` for f32 at every width and for bf16 at 8, 16 and 32 (the
+tiny configs').  A launch that fails raises; no width falls back to the
+other kernel or to the plain version.
 
 A launch is the custom op ``prema::flash_attention``, so that fake
 tensors (``FakeTensorMode``: the dry-run) trace through it: its fake
@@ -23,7 +25,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 # the head widths the kernels are built for: every d_head of the configs
 # whose layers reach flash attention (hubert-xlarge's 1280 / 16 = 80)
 HEAD_DIMS = (8, 16, 32, 64, 80, 128)
-WGMMA_HEAD_DIM = 128
+# the widths of the wgmma kernel's instances (flash_fwd_wgmma_kernel<D>)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 launches = 0   # kernel launches by this wrapper in this process
 variant_launches = {"wgmma": 0, "cuda_core": 0}   # the same, by kernel
 # the same, of the launches with a query offset (a block of query rows)
@@ -32,8 +35,14 @@ mode_launches = {"q_offset": 0}
 
 def kernel_variant(dtype: torch.dtype, d: int) -> str:
     """The kernel that a CUDA launch at this dtype and head width runs."""
-    return ("wgmma" if dtype == torch.bfloat16 and d == WGMMA_HEAD_DIM
+    return ("wgmma" if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
             else "cuda_core")
+
+
+# the same, by kernel and head width ("wgmma/80"): every instance a launch
+# can reach
+width_launches = {f"{kernel_variant(dt, d)}/{d}": 0 for d in HEAD_DIMS
+                  for dt in (torch.bfloat16, torch.float32)}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,7 +96,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     strides = cuda_lib.strides_arg(q, k, v, out)
     if variant == "wgmma":
         err = lib.prema_flash_attention_wgmma(
-            *ptrs, b, hq, hkv, s, t, strides, d ** -0.5, int(causal),
+            *ptrs, b, hq, hkv, s, t, d, strides, d ** -0.5, int(causal),
             q_offset, stream)
     else:
         err = lib.prema_flash_attention(
@@ -96,6 +105,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     cuda_lib.check(err, f"flash_attention ({variant})")
     launches += 1
     variant_launches[variant] += 1
+    width_launches[f"{variant}/{d}"] += 1
     mode_launches["q_offset"] += q_offset > 0
     return out
 

@@ -175,7 +175,7 @@ def test_decode_tensor_pos_is_clamped_to_the_cache():
 # kernel against the plain version run in f32 on the same values, as
 # (atol, rtol).  A bf16 kernel that keeps P in f32 (decode) rounds its f32
 # result once: within half a bf16 ulp (2**-8 relative) plus f32 summation
-# error.  The bf16 flash kernel at D = 128 (wgmma) also rounds P to bf16
+# error.  The bf16 flash kernel at D 64, 80, 128 (wgmma) rounds P to bf16
 # before P @ V and is held to ``bf16_tolerance``.
 CARD_TOL = {torch.float32: (3e-4, 3e-4), torch.bfloat16: (1e-5, 2.0 ** -8)}
 

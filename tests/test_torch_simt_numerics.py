@@ -244,23 +244,30 @@ def test_gemm_staging_split_anywhere_equals_one_fma_chain(bk, k):
 @pytest.mark.cuda
 def test_simt_kernels_on_card():
     """On the card: flash at D 80 (f32 and bf16) against the plain version,
-    and f32 GEMM launches at bk 1 and 100 bitwise equal to one launch."""
+    and f32 GEMM launches at bk 1 and 100 bitwise equal to one launch.
+    bf16 at D 80 runs the wgmma kernel, which rounds P to bf16 before
+    P @ V as the JAX model does: it is held to ``bf16_tolerance``; f32
+    runs the CUDA-core kernel, held to (3e-4, 3e-4)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (bf16_tolerance,
+                                                     flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import kernel_variant
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for dtype, tol in ((torch.float32, (3e-4, 3e-4)),
-                       (torch.bfloat16, (1e-5, 2.0 ** -8))):
+    for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn((1, 100, h, 80), generator=gen, device="cuda",
                                dtype=dtype).transpose(1, 2)
                    for h in (16, 16, 16))
         for causal in (True, False):
-            torch.testing.assert_close(
-                flash_attention(q, k, v, causal).float(),
-                flash_attention_plain(q.float(), k.float(), v.float(),
-                                      causal),
-                atol=tol[0], rtol=tol[1])
+            out = flash_attention(q, k, v, causal).float()
+            ref = flash_attention_plain(q.float(), k.float(), v.float(),
+                                        causal)
+            if kernel_variant(dtype, 80) == "wgmma":
+                assert bool(((out - ref).abs()
+                             <= bf16_tolerance(q, k, v, causal)).all())
+            else:
+                torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
     x = torch.randn((100, 300), generator=gen, device="cuda")
     y = torch.randn((300, 130), generator=gen, device="cuda")
     acc = torch.randn((128, 256), generator=gen, device="cuda")

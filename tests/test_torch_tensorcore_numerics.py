@@ -9,11 +9,13 @@ strides, as functions of dtypes, shapes and strides.
   kernel's sum must stay within half of ``f32_sum_tolerance``; dropping a
   K tile or the last K column, or ignoring the accumulator, must exceed it
   by more than 2x.
-* The bf16 flash kernel at D = 128: f32 scores and online softmax over
-  128-key tiles, P rounded to bf16 before P @ V, l summed from the f32 P,
-  the output rounded to bf16.  It must stay within ``bf16_tolerance``; a
-  dropped key tile, a causal mask one key short or long, and a wrong KV
-  head must each exceed it by more than 2x.
+* The bf16 flash kernel at D = 128, 80 and 64: f32 scores and online
+  softmax over 128-key tiles, P rounded to bf16 before P @ V, l summed
+  from the f32 P, the output rounded to bf16.  It must stay within
+  ``bf16_tolerance``; a dropped key tile, a causal mask one key short or
+  long, and a wrong KV head must each exceed it by more than 2x, also
+  ragged (S 300) and for a block of query rows at an offset (S 37 against
+  T 1000).
 
     python tests/test_torch_tensorcore_numerics.py   # prints the ratios
 """
@@ -127,19 +129,23 @@ def test_k16_steps_split_anywhere_on_64_rows_are_bitwise_equal():
 # --------------------------------------------------------------------------
 # the bf16 flash kernel: P in bf16 before P @ V
 # --------------------------------------------------------------------------
-def _attention_inputs(hq, hkv, s, seed=0):
+def _attention_inputs(hq, hkv, s, seed=0, d=128, t=None):
+    """(Q, K, V) in bf16, (1, H, S or T, D); T = S unless given."""
     rng = np.random.default_rng(seed)
+    t = s if t is None else t
     return tuple(torch.from_numpy(rng.standard_normal(
-        (1, h, s, 128)).astype(np.float32)).bfloat16()
-        for h in (hq, hkv, hkv))
+        (1, h, n, d)).astype(np.float32)).bfloat16()
+        for h, n in ((hq, s), (hkv, t), (hkv, t)))
 
 
-def flash_wgmma_sim(q, k, v, causal, drop_tile=None, shift=0, kv_shift=0):
+def flash_wgmma_sim(q, k, v, causal, drop_tile=None, shift=0, kv_shift=0,
+                    q_offset=0):
     """The wgmma flash kernel's arithmetic on bf16 inputs, in f32: scores,
     online softmax over 128-key tiles in log2 units, P rounded to bf16 for
-    P @ V, l from the f32 P, the output rounded to bf16.  Faults: skip key
-    tile ``drop_tile``; causal mask key <= row + ``shift``; query head h
-    reads KV head (h // g + ``kv_shift``) % Hkv."""
+    P @ V, l from the f32 P, the output rounded to bf16; causal: key <=
+    row + ``q_offset``.  Faults: skip key tile ``drop_tile``; causal mask
+    key <= row + q_offset + ``shift``; query head h reads KV head (h // g +
+    ``kv_shift``) % Hkv."""
     _, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -158,7 +164,7 @@ def flash_wgmma_sim(q, k, v, causal, drop_tile=None, shift=0, kv_shift=0):
             cols = torch.arange(k0, min(k0 + 128, t))[None, :]
             x = (qh @ kh[k0:k0 + 128].T) * scale
             if causal:
-                x = torch.where(cols <= rows + shift, x, -1e30)
+                x = torch.where(cols <= rows + q_offset + shift, x, -1e30)
             m_new = torch.maximum(m, x.max(dim=1, keepdim=True).values)
             alpha = torch.exp2(m - m_new)
             p = torch.exp2(x - m_new)
@@ -169,25 +175,48 @@ def flash_wgmma_sim(q, k, v, causal, drop_tile=None, shift=0, kv_shift=0):
     return out.bfloat16()
 
 
-FLASH_CASES = [(4, 2, 2048, True), (4, 2, 300, True), (4, 2, 300, False)]
+# (Hq, Hkv, S, causal, D, T, q_offset): T = S unless given; the wgmma
+# kernel's widths, hubert-xlarge's 80 among them
+FLASH_CASES = [(4, 2, 2048, True, 128, None, 0),
+               (4, 2, 300, True, 128, None, 0),
+               (4, 2, 300, False, 128, None, 0),
+               (4, 2, 2048, True, 80, None, 0),
+               (4, 2, 300, True, 80, None, 0),
+               (4, 2, 300, False, 80, None, 0),
+               (4, 4, 2048, False, 80, None, 0),
+               (8, 2, 37, True, 80, 1000, 512),
+               (4, 2, 1024, True, 64, None, 0),
+               (4, 2, 300, True, 64, None, 0),
+               (4, 2, 300, False, 64, None, 0)]
 
 
-def flash_ratios(hq, hkv, s, causal):
-    q, k, v = _attention_inputs(hq, hkv, s)
-    ref = flash_attention_plain(q.float(), k.float(), v.float(), causal)
-    tol = bf16_tolerance(q, k, v, causal)
+def _flash_id(c):
+    hq, hkv, s, causal, d, t, q_offset = c
+    name = f"S{s}-{'causal' if causal else 'full'}"
+    if d != 128:
+        name += f"-D{d}-Hq{hq}-Hkv{hkv}"
+    if t is not None:
+        name += f"-T{t}-offset{q_offset}"
+    return name
+
+
+def flash_ratios(hq, hkv, s, causal, d=128, t=None, q_offset=0):
+    q, k, v = _attention_inputs(hq, hkv, s, d=d, t=t)
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), causal,
+                                q_offset)
+    tol = bf16_tolerance(q, k, v, causal, q_offset)
     cases = {"kernel": {}, "drop a key tile": dict(drop_tile=1),
              "wrong KV head": dict(kv_shift=1)}
     if causal:
         cases.update({"mask one key short": dict(shift=-1),
                       "mask one key long": dict(shift=1)})
-    return {name: float(((flash_wgmma_sim(q, k, v, causal, **kw).float()
+    return {name: float(((flash_wgmma_sim(q, k, v, causal, q_offset=q_offset,
+                                          **kw).float()
                           - ref).abs() / tol).max())
             for name, kw in cases.items()}
 
 
-@pytest.mark.parametrize("case", FLASH_CASES,
-                         ids=lambda c: f"S{c[2]}-{'causal' if c[3] else 'full'}")
+@pytest.mark.parametrize("case", FLASH_CASES, ids=_flash_id)
 def test_bf16_p_passes_the_flash_bound_and_faults_fail_it(case):
     ratios = flash_ratios(*case)
     assert ratios.pop("kernel") < 1.0
@@ -206,11 +235,25 @@ def test_flash_bound_with_zero_v_is_its_absolute_term():
 # which kernel a CUDA launch runs, and what TMA can read
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype,d,variant", [
-    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "cuda_core"),
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 8, "cuda_core"), (torch.float32, 128, "cuda_core"),
-    (torch.float32, 16, "cuda_core")])
+    (torch.float32, 16, "cuda_core"), (torch.bfloat16, 80, "wgmma"),
+    (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 32, "cuda_core"),
+    (torch.float32, 80, "cuda_core"), (torch.float32, 64, "cuda_core")])
 def test_flash_kernel_variant(dtype, d, variant):
     assert flash_ops.kernel_variant(dtype, d) == variant
+
+
+def test_flash_width_counters_cover_every_instance():
+    """One launch counter per kernel instance a CUDA launch can reach,
+    named ``variant/width``: the wgmma kernel at its widths only."""
+    want = {f"{flash_ops.kernel_variant(dt, d)}/{d}"
+            for d in flash_ops.HEAD_DIMS
+            for dt in (torch.bfloat16, torch.float32)}
+    assert set(flash_ops.width_launches) == want
+    assert {k for k in want if k.startswith("wgmma/")} == {
+        f"wgmma/{d}" for d in flash_ops.WGMMA_HEAD_DIMS}
+    assert set(flash_ops.WGMMA_HEAD_DIMS) <= set(flash_ops.HEAD_DIMS)
 
 
 @pytest.mark.parametrize("dtype,bk,variant", [
@@ -255,13 +298,49 @@ def test_tma_operand_keeps_what_tma_reads_and_copies_the_rest():
 
 
 def test_cpu_tensors_launch_nothing():
-    before = dict(flash_ops.variant_launches), dict(mm_ops.variant_launches)
-    q, k, v = _attention_inputs(2, 1, 16)
-    flash_attention(q, k, v)
+    before = (dict(flash_ops.variant_launches), dict(mm_ops.variant_launches),
+              dict(flash_ops.width_launches))
+    for d in (128, 80, 64):
+        q, k, v = _attention_inputs(2, 1, 16, d=d)
+        flash_attention(q, k, v)
     x, y = _bf16_pair(8, 128, 8, seed=1)
     matmul_resumable(x, y, torch.zeros((8, 8)), 0, 1, bk=32)  # any bk
-    assert (flash_ops.variant_launches, mm_ops.variant_launches) == before
+    assert (flash_ops.variant_launches, mm_ops.variant_launches,
+            flash_ops.width_launches) == before
     assert flash_ops.launches == sum(flash_ops.variant_launches.values())
+    assert flash_ops.launches == sum(flash_ops.width_launches.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80])
+def test_wgmma_flash_narrow_widths_on_card(d):
+    """On the card: the wgmma kernel's D 64 and 80 instances on the model's
+    strided (B, S, H, D) layout, held to ``bf16_tolerance``: ragged S and
+    T, a GQA group of 4, causal and not, and a block of query rows at an
+    offset; every launch counted on its instance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(n, h):
+        return torch.randn((2, n, h, d), generator=gen, device="cuda",
+                           dtype=torch.bfloat16).transpose(1, 2)
+    assert flash_ops.kernel_variant(torch.bfloat16, d) == "wgmma"
+    before = dict(flash_ops.width_launches)
+    cases = [(300, 300, True, 0), (300, 300, False, 0), (37, 1000, False, 0),
+             (37, 1000, True, 512), (200, 457, True, 257)]
+    for s, t, causal, q_offset in cases:
+        q, k, v = rand(s, 16), rand(t, 4), rand(t, 4)
+        out = flash_attention(q, k, v, causal, q_offset)
+        ref = flash_attention_plain(q.float(), k.float(), v.float(), causal,
+                                    q_offset)
+        tol = bf16_tolerance(q, k, v, causal, q_offset)
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        assert bool(((out.float() - ref).abs() <= tol).all()), (s, t, causal)
+    torch.cuda.synchronize()
+    after = dict(flash_ops.width_launches)
+    assert after.pop(f"wgmma/{d}") == before.pop(f"wgmma/{d}") + len(cases)
+    assert after == before
 
 
 if __name__ == "__main__":
@@ -272,8 +351,10 @@ if __name__ == "__main__":
                       {c: round(v, 4) for c, v in r.items()})
     for c in FLASH_CASES:
         print(c, {n: round(v, 4) for n, v in flash_ratios(*c).items()})
-        qq, kk, vv = _attention_inputs(*c[:3])
-        r = flash_attention_plain(qq.float(), kk.float(), vv.float(), c[3])
-        e = (flash_wgmma_sim(qq, kk, vv, c[3]).float() - r).abs()
+        qq, kk, vv = _attention_inputs(*c[:3], d=c[4], t=c[5])
+        r = flash_attention_plain(qq.float(), kk.float(), vv.float(), c[3],
+                                  c[6])
+        e = (flash_wgmma_sim(qq, kk, vv, c[3], q_offset=c[6]).float()
+             - r).abs()
         print("  kernel against the bound without the P term:",
               round(float((e / (1e-5 + 2.0 ** -8 * r.abs())).max()), 2))
