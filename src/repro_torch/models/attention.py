@@ -66,6 +66,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import (apply_rope, leaf, normal_leaf,
                                        reduce_over, rms_norm_head, stacked)
+from repro_torch.obs import host
 
 Params = dict
 NEG_INF = -1e30
@@ -151,10 +152,13 @@ def _prefill_attend(x: torch.Tensor, kv_src: Optional[torch.Tensor],
     k_a, v_a = ((k, v) if kv_idx is None else
                 (k.index_select(2, kv_idx), v.index_select(2, kv_idx)))
     # the kernel reads the (B,S,H,Dh) tensors through strides
+    t0 = host.ON and host.now()
     out = flash_attention(q.transpose(1, 2), k_a.transpose(1, 2),
                           v_a.transpose(1, 2),
                           causal=kv_src is None and cfg.causal,
                           q_offset=row0)
+    if t0:
+        host.add("attn.kernel", t0, host.now())
     y = reduce_over(_out_proj(out.transpose(1, 2), p["wo"]), heads)
     if rows is not None:
         y = col.all_gather(y, 1, rows.mesh, rows.axes)
@@ -223,14 +227,20 @@ def _decode_over_block(q: torch.Tensor, cache: Params, pos: int,
                        kv: Optional[Split]) -> torch.Tensor:
     """The decode kernel over the cache block this process holds, whose
     first position is ``kv``'s block start (0 without a split), at
-    global ``pos``; with a split the blocks' outputs are merged."""
+    global ``pos``; with a split the blocks' outputs are merged.  The call
+    is the span ``attn.kernel`` while ``obs.host`` records."""
+    t0 = host.ON and host.now()
     k, v = cache["k"].transpose(1, 2), cache["v"].transpose(1, 2)
     if kv is None:
-        return decode_attention(q, k, v, pos)
-    t = k.shape[2]
-    local = min(max(pos - kv.index * t, -1), t - 1)
-    out, lse = decode_attention(q, k, v, local, return_lse=True)
-    return col.merge_partials(out, lse, kv.mesh, kv.axes)
+        out = decode_attention(q, k, v, pos)
+    else:
+        t = k.shape[2]
+        local = min(max(pos - kv.index * t, -1), t - 1)
+        out, lse = decode_attention(q, k, v, local, return_lse=True)
+        out = col.merge_partials(out, lse, kv.mesh, kv.axes)
+    if t0:
+        host.add("attn.kernel", t0, host.now())
+    return out
 
 
 def _heads_out(out: torch.Tensor, p: Params, heads: Optional[Split]

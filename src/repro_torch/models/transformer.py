@@ -42,6 +42,7 @@ from repro_torch.models.layers import (CE_CHUNK_THRESHOLD, apply_mlp,
                                        cross_entropy, embed_tokens,
                                        init_embed, init_mlp, init_norm,
                                        normal_leaf, placing, unembed)
+from repro_torch.obs import host
 from repro_torch.params import resolve_device
 
 Params = Dict[str, Any]
@@ -153,16 +154,21 @@ def period_params(slots: Params, i: int) -> Params:
 # ==========================================================================
 def _apply_block(slot_idx: int, h: torch.Tensor, slot_p: Params,
                  cfg: ArchConfig, mode: str, cache: Optional[Cache],
-                 pos: Optional[int], img_h: Optional[torch.Tensor]
+                 pos: Optional[int], img_h: Optional[torch.Tensor],
+                 layer: int = -1
                  ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Pre-norm residual block (the mixer, then the MLP or MoE if any), in
     mode ``"train"``, ``"prefill"`` or ``"decode"``.  ``img_h`` (B,
     img_tokens, D) feeds cross-attention.  Returns
     (h, new_cache, aux), aux the MoE's load-balance loss (f32 zero for
-    other blocks)."""
+    other blocks).  In prefill and decode, while ``obs.host`` records,
+    leaves the spans ``block``, ``block.mixer`` and ``block.ffn``, each
+    with (``layer``, the mixer's or the ffn's kind)."""
     mixer, ffn = cfg.block_pattern[slot_idx]
+    t0 = host.ON and mode != "train" and host.now()
     y = apply_norm(h, slot_p["norm1"], cfg)
     _, prefill_fn, decode_fn, forward_fn = _MIXERS[mixer]
+    t1 = t0 and host.now()
     if mode == "decode":
         extra = (pos,) if mixer == "attn" else ()
         y, new_cache = decode_fn(y, slot_p["mixer"], cfg, cache, *extra)
@@ -172,15 +178,22 @@ def _apply_block(slot_idx: int, h: torch.Tensor, slot_p: Params,
             y, new_cache = forward_fn(y, slot_p["mixer"], cfg, *extra), None
         else:
             y, new_cache = prefill_fn(y, slot_p["mixer"], cfg, *extra)
+    if t0:
+        host.add("block.mixer", t1, host.now(), (layer, mixer))
     h = h + y
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if ffn != "none":
         y = apply_norm(h, slot_p["norm2"], cfg)
+        t1 = t0 and host.now()
         if ffn == "moe":
             y, aux = moe_mod.apply_moe(y, slot_p["ffn"], cfg)
         else:
             y = apply_mlp(y, slot_p["ffn"], cfg)
+        if t0:
+            host.add("block.ffn", t1, host.now(), (layer, ffn))
         h = h + y
+    if t0:
+        host.add("block", t0, host.now(), (layer, mixer))
     return h, new_cache, aux
 
 
@@ -339,7 +352,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         new_cache = {}
         for i in range(cfg.period):
             h, nc, _ = _apply_block(i, h, slots[f"slot{i}"], cfg,
-                                    "prefill", None, None, img_h)
+                                    "prefill", None, None, img_h,
+                                    layer=p_idx * cfg.period + i)
             new_cache[f"slot{i}"] = nc
         per_period.append(new_cache)
     h = apply_norm(h, params["final_norm"], cfg)
@@ -377,7 +391,8 @@ def decode_step(params: Params, cache: Cache, tokens: torch.Tensor, pos: int,
             name = f"slot{i}"
             period_cache = {k: c[p_idx] for k, c in cache[name].items()}
             h, new_state, _ = _apply_block(i, h, slots[name], cfg, "decode",
-                                           period_cache, pos, None)
+                                           period_cache, pos, None,
+                                           layer=p_idx * cfg.period + i)
             if mixer not in ("attn", "cross_attn"):
                 for k, v in new_state.items():
                     period_cache[k].copy_(v)

@@ -17,13 +17,19 @@ bit-identical behavior; detaching restores it (gated by
   back onto the bus.
 - :func:`~repro_torch.obs.replay_diff.first_divergence` — earliest differing
   event between two executed logs, with surrounding context.
+- :mod:`~repro_torch.obs.host` — not a subscriber: host-clock spans and
+  counters inside the engine, the executor and the model step, and the
+  garbage collector's pauses, recorded while switched on or while a
+  ``torch.profiler`` session is active.
 """
+from repro_torch.obs import host
 from repro_torch.obs.replay_diff import first_divergence
 from repro_torch.obs.slo import SLOMonitor, SLORule
 from repro_torch.obs.telemetry import Telemetry, TelemetryConfig
 from repro_torch.obs.tracing import Span, SpanTracer
 
 __all__ = [
+    "host",
     "Span",
     "SpanTracer",
     "Telemetry",

@@ -54,6 +54,7 @@ from repro_torch.core.scheduler import SCHED_QUANTUM, Policy, make_policy
 from repro_torch.core.task import Task, TaskState
 from repro_torch.hw import H100, HardwareModel
 from repro_torch.models.registry import Model
+from repro_torch.obs import host
 from repro_torch.serving.executor import ExecState, PreemptibleExecutor
 from repro_torch.serving.kv_cache import KVCacheManager
 from repro_torch.serving.request import InferenceRequest, RequestResult
@@ -384,6 +385,7 @@ class ServingEngine:
     def run(self, requests: List[InferenceRequest]) -> List[RequestResult]:
         """``requests`` may be a prebuilt request list or a serving-kind
         :class:`repro_torch.workloads.Trace` (payloads synthesized per record)."""
+        host_t0 = host.arm() and host.now()
         if hasattr(requests, "records"):     # workloads.Trace (duck-typed)
             from repro_torch.workloads.serving_adapter import to_requests
             requests = to_requests(requests, self._models)
@@ -487,11 +489,14 @@ class ServingEngine:
                 ready.append(j)
 
         def pick(d: int) -> Optional[_Job]:
+            host_t0 = host.ON and host.now()
             ts = ready.tasks
             now = dev_clock[d]
             self.arbiter.wake(ts, now)
             run_t = running[d].task if running[d] else None
             sel = self.arbiter.pick(ts, now, run_t)
+            if host_t0:
+                host.add("engine.pick", host_t0, host.now(), d)
             if sel is None:
                 return None
             return ready.job_for(sel)
@@ -505,6 +510,7 @@ class ServingEngine:
             now = dev_clock[d]
             clock = max(clock, now)
             if t.restore_pending:
+                host_t0 = host.ON and host.now()
                 lat = preemption.restore_latency(t, dev_hw(d))
                 if t.device is not None and t.device != d:
                     # checkpoint + KV residency live on another chip
@@ -521,6 +527,8 @@ class ServingEngine:
                 dev_clock[d] += lat
                 if self.execute and j.state is not None:
                     j.state = PreemptibleExecutor.restore(j.state)
+                if host_t0:
+                    host.add("engine.restore", host_t0, host.now(), j.req.rid)
             if j.state is None and self.execute:
                 j.state = j.executor.start(self._batch_dict(j.req))
                 self.kvs[d].register(j.req.rid, 0, dev_clock[d])
@@ -537,6 +545,7 @@ class ServingEngine:
             bus.dispatch(now, t, d)
 
         def do_checkpoint(d: int, j: _Job):
+            host_t0 = host.ON and host.now()
             t = j.task
             lat = preemption.checkpoint_latency(t, dev_hw(d))
             if self.execute and j.state is not None:
@@ -549,6 +558,8 @@ class ServingEngine:
             t.n_preemptions += 1
             t.state = TaskState.PREEMPTED
             dev_clock[d] += lat
+            if host_t0:
+                host.add("engine.checkpoint", host_t0, host.now(), j.req.rid)
 
         def do_kill(d: int, j: _Job):
             j.state = None
@@ -561,6 +572,7 @@ class ServingEngine:
 
         def complete(d: int, j: _Job):
             nonlocal clock
+            host_t0 = host.ON and host.now()
             t = j.task
             # the step that finished advanced this device's clock past the
             # iteration-start time; elastic hooks fired off the complete
@@ -591,6 +603,8 @@ class ServingEngine:
             self._run_tasks.append(t)
             running[d] = None
             devices[d].running = None
+            if host_t0:
+                host.add("engine.complete", host_t0, host.now(), j.req.rid)
             bus.complete(t_done, t, d)
 
         def exec_one_step(d: int, j: _Job):
@@ -744,7 +758,10 @@ class ServingEngine:
                 if ready and self.policy.preemptive:
                     cand = pick(d)
                     if cand is not None and cand is not j:
+                        host_t1 = host.ON and host.now()
                         dec = self.arbiter.arbitrate(j.task, cand.task)
+                        if host_t1:
+                            host.add("engine.pick", host_t1, host.now(), d)
                         if dec.action is Action.PREEMPT:
                             victim = j
                             bus.preempt(dev_clock[d], victim.task, d,
@@ -766,6 +783,8 @@ class ServingEngine:
         finally:
             self._inject = None   # dead runs must not accept submissions
             self._elastic = None
+            if host_t0:
+                host.add("engine.round", host_t0, host.now(), len(requests))
         return self.completed
 
     # ------------------------------------------------------------------

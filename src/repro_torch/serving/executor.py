@@ -12,6 +12,14 @@ decode cache is updated in place.  Only self-attention slots grow with
 the context; the image KV and a recurrent state keep their sizes.  An
 encoder-only model ends its prefill in phase ``done`` with logits at every
 position and no token.
+
+Each call asks ``obs.host`` whether to record (``host.arm()``) and, when
+it records, leaves host-clock spans: ``exec.start``, ``exec.prefill`` (one
+period), ``exec.decode`` and inside it ``exec.grow`` (the KV buffers'
+growth, counters ``kv_grows`` and ``kv_grow_bytes``), ``exec.h2d`` (the
+last token to the device), ``exec.model`` (``transformer.decode_step``)
+and ``exec.sample`` (``_greedy``'s copy to the host, the step's one
+sync; counter ``host_syncs``; also in prefill's last period).
 """
 from __future__ import annotations
 
@@ -25,12 +33,17 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models import transformer
 from repro_torch.models.layers import apply_norm, unembed
 from repro_torch.models.registry import Model
+from repro_torch.obs import host
 
 Params = Dict[str, Any]
 
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _nbytes_of(cache: Dict[str, Dict[str, torch.Tensor]], slots: List[str]) -> int:
+    return sum(_nbytes(t) for name in slots for t in cache[name].values())
 
 
 @dataclasses.dataclass
@@ -60,7 +73,12 @@ class ExecState:
 
 def _greedy(logits: torch.Tensor) -> np.ndarray:
     """First index of the maximum, as ``jnp.argmax``."""
-    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32).cpu().numpy()
+    t0 = host.ON and host.now()
+    tokens = torch.argmax(logits[:, -1], dim=-1).to(torch.int32).cpu().numpy()
+    if t0:
+        host.add("exec.sample", t0, host.now())
+        host.count("host_syncs")
+    return tokens
 
 
 class PreemptibleExecutor:
@@ -83,24 +101,31 @@ class PreemptibleExecutor:
     def start(self, batch: Dict[str, Any]) -> ExecState:
         """``batch``: ``tokens`` or ``frames``, and ``img_embeds`` for a
         VLM, as array-likes (the engine hands over numpy arrays)."""
+        t0 = host.arm() and host.now()
         dev = self._device()
         inputs = {k: torch.as_tensor(np.asarray(batch[k]), device=dev)
                   for k in ("tokens", "frames", "img_embeds") if k in batch}
         h, img_h = transformer._embed_inputs(self.params, self.cfg, inputs)
-        return ExecState(phase="prefill", period_idx=0, h=h, img_h=img_h,
-                         cache_slices=[], tokens_out=[], pos=int(h.shape[1]))
+        st = ExecState(phase="prefill", period_idx=0, h=h, img_h=img_h,
+                       cache_slices=[], tokens_out=[], pos=int(h.shape[1]))
+        if t0:
+            host.add("exec.start", t0, host.now(), st.pos)
+        return st
 
     @torch.inference_mode()
     def step_prefill(self, st: ExecState) -> ExecState:
         """Execute one super-block period; boundary afterwards."""
+        t0 = host.arm() and host.now()
         assert st.phase == "prefill"
         cfg = self.cfg
-        slots = transformer.period_params(self.params["slots"], st.period_idx)
+        period = st.period_idx
+        slots = transformer.period_params(self.params["slots"], period)
         h, new_cache = st.h, {}
         for i in range(cfg.period):
             h, nc, _ = transformer._apply_block(i, h, slots[f"slot{i}"],
                                                 cfg, "prefill", None, None,
-                                                st.img_h)
+                                                st.img_h,
+                                                layer=period * cfg.period + i)
             new_cache[f"slot{i}"] = nc
         st.h = h
         st.cache_slices.append(new_cache)
@@ -121,6 +146,8 @@ class PreemptibleExecutor:
                 st.cache_slices = None
                 st.tokens_out.append(_greedy(st.last_logits))
                 st.phase = "decode"
+        if t0:
+            host.add("exec.prefill", t0, host.now(), period)
         return st
 
     def _attn_slots(self) -> List[str]:
@@ -129,31 +156,50 @@ class PreemptibleExecutor:
 
     def _grow_cache(self, st: ExecState, extra: int) -> None:
         """Extend the self-attention KV buffers to hold ``extra`` more
-        tokens; the image KV and recurrent states are left as they are."""
+        tokens; the image KV and recurrent states are left as they are.
+        Recorded as ``exec.grow`` with the buffers' bytes before and after."""
+        t0 = host.ON and host.now()
+
         def pad(a: torch.Tensor) -> torch.Tensor:
             shape = list(a.shape)
             shape[2] = extra             # (periods, B, T, H, Dh)
             return torch.cat([a, a.new_zeros(shape)], dim=2)
-        for name in self._attn_slots():
+        slots = self._attn_slots()
+        before = t0 and _nbytes_of(st.cache, slots)
+        for name in slots:
             st.cache[name] = {k: pad(v) for k, v in st.cache[name].items()}
+        if t0:
+            after = _nbytes_of(st.cache, slots)
+            host.add("exec.grow", t0, host.now(), (before, after))
+            host.count("kv_grows")
+            host.count("kv_grow_bytes", after - before)
 
     @torch.inference_mode()
     def step_decode(self, st: ExecState) -> ExecState:
         """Generate one token; boundary afterwards.  The KV buffers grow
         when full; a model without attention never grows."""
+        t0 = host.arm() and host.now()
         assert st.phase == "decode"
         attn_slots = self._attn_slots()
         if attn_slots:
             t_cap = st.cache[attn_slots[0]]["k"].shape[2]
             if st.pos >= t_cap:
                 self._grow_cache(st, max(16, t_cap // 4))
+        t1 = t0 and host.now()
         tok = torch.as_tensor(st.tokens_out[-1][:, None],
                               device=self._device())
+        if t0:
+            t2 = host.now()
+            host.add("exec.h2d", t1, t2)
         logits, st.cache = transformer.decode_step(
             self.params, st.cache, tok, st.pos, self.cfg)
+        if t0:
+            host.add("exec.model", t2, host.now())
         st.pos += 1
         st.last_logits = logits
         st.tokens_out.append(_greedy(logits))
+        if t0:
+            host.add("exec.decode", t0, host.now(), st.pos - 1)
         return st
 
     def step(self, st: ExecState) -> ExecState:
