@@ -33,6 +33,7 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import time
@@ -200,6 +201,7 @@ class Req:
     last: Optional[float] = None         # latest token
     done: Optional[float] = None         # ``complete`` event
     own: float = 0.0                     # its executor calls + checkpoints
+    own_first: Optional[float] = None    # ``own`` at its first token
     ckpt: float = 0.0
     n_tokens: int = 0                    # tokens of its current run
     preemptions: int = 0                 # checkpoints and kills
@@ -292,7 +294,7 @@ class Recorder:
                 r.n_tokens = 1
                 r.last = t1
                 if r.first is None:
-                    r.first = t1
+                    r.first, r.own_first = t1, r.own
             return st
 
         def timed_decode(st):
@@ -519,6 +521,18 @@ def hi_ttft_quantiles(reqs: Dict[int, Req]) -> Dict[str, float]:
             for q in (10, 25, 50, 75, 90, 95, 99)}
 
 
+def cycle_summary(virtual: List[Dict], cell: Dict) -> Dict[str, float]:
+    """The engine's ``summary()`` on its virtual clock, each key's mean
+    over the first ``cycle_rounds`` rounds: one whole cycle of the seed's
+    stream, which holds the same rounds for every seed, so the reading
+    depends on the engine's scheduling code, its frozen hardware model and
+    the mix alone.  A window of fewer rounds gives the mean over all of
+    them.  ``bench/test_bench_sched_antt.py`` holds its ``antt``."""
+    rounds = virtual[:cell.get("cycle_rounds", len(virtual))]
+    return {k: math.fsum(v[k] for v in rounds) / len(rounds)
+            for k in rounds[0]}
+
+
 def card_line() -> Optional[str]:
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -602,11 +616,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         value = reader(m["name"])(window)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    vsum = {k: float(np.mean([v[k] for v in virtual])) for k in virtual[0]}
-    print(json.dumps({"virtual_clock_summary": vsum, "rounds": len(virtual),
+    print(json.dumps({"virtual_clock_summary": cycle_summary(virtual, cell),
+                      "rounds": len(virtual),
                       "note": "engine summary() on the virtual clock of the "
-                              "frozen H100 model, averaged over rounds; not "
-                              "measured time"}), flush=True)
+                              "frozen H100 model, averaged over the first "
+                              "cycle_rounds rounds; not measured time"}),
+          flush=True)
     print(json.dumps({"check": dict(got, seconds=check_s),
                       "requests": attempted,
                       "priority9": sum(r.priority == 9 for r in rec.reqs.values()),

@@ -18,13 +18,20 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def reckon(config: str, mix_name: str) -> dict:
+    from bench import traffic
+    cfg = json.loads((REPO / "bench" / "configs" / f"{config}.json").read_text())
+    mix = traffic.load_mix(mix_name)
+    iso = mean_isolated_s(cfg, mix)
+    return dict(mean_isolated_s=iso, mean_gap_s=iso / mix["load"])
+
+
+def mean_isolated_s(cfg: dict, mix: dict) -> float:
+    """The mean predicted isolated time over one block of the mix."""
     import numpy as np
     from repro_torch.hw import HardwareModel
     from repro_torch.serving import EngineConfig, ServingEngine
 
     from bench import harness, traffic, yardstick
-    cfg = json.loads((REPO / "bench" / "configs" / f"{config}.json").read_text())
-    mix = traffic.load_mix(mix_name)
     model = harness.build_model(cfg)
     drawn = [dict(rid=i, priority=s["priority"], arrival=0.0,
                   max_new_tokens=s["output_len"],
@@ -34,9 +41,7 @@ def reckon(config: str, mix_name: str) -> dict:
         hw=HardwareModel(**yardstick.FROZEN_H100), policy="prema",
         mechanism="dynamic", execute=False))
     engine.run(harness.requests(cfg, drawn))
-    iso = [t.isolated_time for t in engine.tasks]
-    return dict(mean_isolated_s=float(np.mean(iso)),
-                mean_gap_s=float(np.mean(iso)) / mix["load"])
+    return float(np.mean([t.isolated_time for t in engine.tasks]))
 
 
 if __name__ == "__main__":

@@ -45,9 +45,9 @@ def test_model_flops():
 def window(trace=None):
     R, S = harness.Req, harness.Step
     reqs = {0: R(0, 9, 1, 100, 1, admit=0.0, start=0.01, first=0.05, last=0.05,
-                 done=0.06, own=0.05, n_tokens=1),
+                 done=0.06, own=0.05, own_first=0.04, n_tokens=1),
             1: R(1, 9, 1, 200, 2, admit=0.0, start=0.06, first=0.10, last=0.12,
-                 done=0.13, own=0.06, n_tokens=2, preemptions=1),
+                 done=0.13, own=0.06, own_first=0.04, n_tokens=2, preemptions=1),
             2: R(2, 1, 1, 1000, 3, admit=0.0, start=0.13, first=0.20, last=0.40,
                  done=0.41, own=0.28, n_tokens=3, preempted_in_prefill=True)}
     steps = [S("start", 0, 0.01, 0.02, 100), S("prefill", 0, 0.02, 0.05, 100),
@@ -61,13 +61,14 @@ def window(trace=None):
 def test_readers():
     w = window()
     read = harness.reader
-    assert read("hi_ttft_p90_ms")(w) == pytest.approx(
+    assert read("hi_ttft_p90_ms.preempt")(w) == pytest.approx(
         yardstick.percentile([50.0, 100.0], 90))
+    # first token minus admission over own time to it: 0.05 / 0.04, 0.10 / 0.04
+    assert read("hi_nttft_p90")(w) == pytest.approx(
+        yardstick.percentile([1.25, 2.5], 90))
     assert read("tokens_per_s")(w) == pytest.approx(6 / 0.5)
     # decode wall: request 1 0.02 s over 1 token, request 2 0.2 s over 2
     assert read("tpot_ms")(w) == pytest.approx(0.22 / 3 * 1e3)
-    assert read("antt")(w) == pytest.approx(np.mean([0.06 / 0.05, 0.13 / 0.06,
-                                                     0.41 / 0.28]))
     assert read("preemptions_per_hi")(w) == pytest.approx(0.5)
     # requests 0 and 1 (2 was preempted in its prefill): 0.04 + 0.04 s, 300 tokens
     assert read("prefill_ms_per_ktok")(w) == pytest.approx(0.08 / 300 * 1e6)
@@ -79,8 +80,36 @@ def test_readers():
              + yardstick.prefill_model_flops(CFG, 1000) / 2
              + sum(yardstick.decode_model_flops(CFG, t) for t in (201, 1001, 1002)))
     assert read("mfu")(w) == pytest.approx(flops / (0.5 * 989e12) * 100)
-    for name in ("flash_roofline", "decode_attn_roofline", "device_idle_share"):
+    for name in ("flash_roofline", "decode_attn_roofline", "device_idle_share",
+                 "device_idle_share.preempt"):
         assert read(name)(w) is None
+    # the preempt cell's copies read as their originals
+    for name in ("tokens_per_s", "mfu"):
+        assert read(f"{name}.preempt")(w) == read(name)(w)
+
+
+def test_nttft_without_a_first_token():
+    """Requests with no first token, or of priority 1, are left out; a
+    window with none left reads nothing."""
+    w = window()
+    for r in w.reqs.values():
+        if r.rid != 2:
+            r.first = r.own_first = None
+    assert harness.reader("hi_nttft_p90")(w) is None
+    assert harness.reader("hi_ttft_p90_ms.preempt")(w) is None
+
+
+def test_cycle_summary():
+    """The engine's summary on its virtual clock: each key's mean over the
+    first cycle of rounds, or over all rounds where a window holds fewer."""
+    virtual = [{"antt": 1.2, "stp": 2.0}, {"antt": 1.5, "stp": 4.0},
+               {"antt": 9.0, "stp": 0.0}]
+    assert harness.cycle_summary(virtual, {"cycle_rounds": 2}) == pytest.approx(
+        {"antt": 1.35, "stp": 3.0})
+    assert harness.cycle_summary(virtual, {"cycle_rounds": 11}) == pytest.approx(
+        {"antt": 11.7 / 3, "stp": 2.0})
+    assert harness.cycle_summary(virtual, {}) == pytest.approx(
+        {"antt": 11.7 / 3, "stp": 2.0})
 
 
 def test_rooflines_from_a_trace():
@@ -94,6 +123,7 @@ def test_rooflines_from_a_trace():
                     for t in (201, 1001, 1002))
     assert harness.reader("decode_attn_roofline")(w) == pytest.approx(bound / 1e-5 * 100)
     assert harness.reader("device_idle_share")(w) == pytest.approx(75.0)
+    assert harness.reader("device_idle_share.preempt")(w) == pytest.approx(75.0)
     # a launch count that is not one per layer and step reads nothing
     kern["decode_split_kernel"][1] = 5
     assert harness.reader("decode_attn_roofline")(w) is None
@@ -181,6 +211,14 @@ def test_traffic_is_the_same_work_in_another_order():
     # a whole cycle holds the same rounds for every seed, in another order
     assert sorted(map(sizes, s7)) == sorted(map(sizes, s8))
     assert list(map(sizes, s7)) != list(map(sizes, s8))
+    # without a seeded start every seed runs the stream from its first round
+    first = dict(cell, seeded_start=False)
+    f7 = [traffic.round_requests(mix, first, 7, r, 100) for r in range(4)]
+    f8 = [traffic.round_requests(mix, first, 2**40 + 8, r, 100) for r in range(4)]
+    assert list(map(sizes, f7)) == list(map(sizes, f8))
+    assert sizes(f7[3]) == sizes(f7[0]) != sizes(f7[1])
+    assert sorted(map(sizes, f7[:3])) == sorted(map(sizes, s7))
+    assert not np.array_equal(f7[0][0]["prompt"], f8[0][0]["prompt"])
     assert not np.array_equal(s7[0][0]["prompt"], s8[2][0]["prompt"])
     gaps = np.diff([0.0] + [q["arrival"] for q in s7[0]])
     assert gaps.mean() == pytest.approx(0.01)

@@ -12,7 +12,7 @@ import repro_torch.obs
 from repro_torch.obs import host
 
 NEW = ("decode_launch_ms", "decode_sync_ms", "kv_grow_ms_per_ktok",
-       "checkpoint_ms", "gc_ms_per_s", "hi_ttft_gc_share")
+       "checkpoint_ms", "gc_ms_per_s", "hi_ttft_gc_share", "gc_ms_per_s.preempt")
 MS = 1_000_000      # ns
 
 
@@ -71,6 +71,7 @@ def test_readers_against_hand_counts():
     assert read("checkpoint_ms")(w) == pytest.approx((2 + 6) / 2)
     # 20 + 10 + the 10 ms of 440-470 inside the window, over 0.45 s
     assert read("gc_ms_per_s")(w) == pytest.approx(40 / 0.45)
+    assert read("gc_ms_per_s.preempt")(w) == read("gc_ms_per_s")(w)
     # request 0 [0, 50] overlaps 40-60 for 10 ms, request 1 [0, 100] for 20;
     # the priority-1 request's overlap (250-260) does not count
     assert read("hi_ttft_gc_share")(w) == pytest.approx(30 / 150 * 100)

@@ -14,7 +14,11 @@ The orders of the sizes and of the gaps come from one stream of
 every seed; a seed starts it at round ``seed mod cycle_rounds`` and draws
 the token ids.  So two seeds send the same work in another order, and a
 window that holds whole cycles holds the same rounds whatever the seed: a
-run's spread is the program's, not the draw's.
+run's spread is the program's, not the draw's.  A cell whose window holds
+a part of a cycle as well, and whose metrics follow the rounds it holds,
+sets ``"seeded_start": false`` in its file: every seed then runs the
+stream from its first round, so a window of R rounds holds the same sizes
+and arrivals whatever the seed, and the seed draws the token ids alone.
 """
 from __future__ import annotations
 
@@ -83,7 +87,8 @@ def arrivals(mix: Dict, cell: Dict, n: int, rng) -> np.ndarray:
 def round_requests(mix: Dict, cell: Dict, seed: int, r: int,
                    vocab: int) -> List[Dict]:
     """Round ``r``'s requests for ``seed``: the stream's round
-    ``(seed + r) mod cycle_rounds``, with token ids drawn from (seed, r).
+    ``(seed + r) mod cycle_rounds`` (``r mod cycle_rounds`` where the cell
+    sets ``seeded_start`` false), with token ids drawn from (seed, r).
     Each request: rid (unique over rounds), priority, prompt (batch, len)
     int32, max_new_tokens and virtual arrival."""
     n, per_block = mix["round_requests"], mix["block_requests"]
@@ -91,7 +96,8 @@ def round_requests(mix: Dict, cell: Dict, seed: int, r: int,
     if (cycle * n) % per_block:
         raise ValueError(f"cycle_rounds {cycle} x round_requests {n} is not "
                          f"whole blocks of {per_block}")
-    q = (seed_words(seed) + r) % cycle
+    start = seed_words(seed) if cell.get("seeded_start", True) else 0
+    q = (start + r) % cycle
     first = q * n
     blocks = {b: block(mix, b)
               for b in range(first // per_block, (first + n - 1) // per_block + 1)}
