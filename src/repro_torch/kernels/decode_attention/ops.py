@@ -26,12 +26,14 @@ from repro_torch.kernels import (DTYPE_CODES, check_attention_inputs,
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 
 HEAD_DIMS = (8, 16, 32, 64, 128)   # the head widths the kernel is built for
-launches = 0        # kernel launches by this wrapper in this process
+launches = 0        # kernel launches on the device in this process
 mode_launches = {"lse": 0}   # the same, of those that wrote the lse
+# launches captured into CUDA graphs, where nothing runs: whoever replays
+# a graph adds the launches it captured to ``launches``
+captured = 0
 layout_copies = 0   # K or V copied because 16-byte loads could not read it
 # per device, the kernel's (B * Hkv) int32 merge tickets: zeros, and left
-# zero by every launch.  Allocated by the first call, so warm up before
-# capturing a CUDA graph, which must not own them.
+# zero by every launch; replaced by a call that needs more (:func:`tickets`)
 _tickets = {}
 
 
@@ -66,16 +68,28 @@ def _readable(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The device's merge tickets, at least ``n``, kept across calls.  A
+    call that needs more replaces them, and the allocator may hand the old
+    block to another tensor: a CUDA graph that launches the kernel must
+    hold the tensor it was captured on.  Never allocated inside a capture
+    (call this first)."""
+    held = _tickets.get(device)
+    if held is None or held.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"decode_attention: {n} merge tickets are "
+                               "not allocated yet; allocate them before "
+                               "capturing")
+        held = _tickets[device] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                              device=device)
+    return held
+
+
 def _tickets_for(q: torch.Tensor, n: int) -> torch.Tensor:
-    """The device's merge tickets, at least ``n``: kept across calls, but
-    a fake call gets fake ones of its own."""
+    """:func:`tickets`, but a fake call gets fake ones of its own."""
     if is_fake(q):
         return torch.zeros(max(n, 64), dtype=torch.int32, device=q.device)
-    tickets = _tickets.get(q.device)
-    if tickets is None or tickets.numel() < n:
-        tickets = _tickets[q.device] = torch.zeros(
-            max(n, 64), dtype=torch.int32, device=q.device)
-    return tickets
+    return tickets(q.device, n)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,8 +124,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch; ``pos_t`` (a device int32) or else ``pos``.  The
     tickets are zero before and after, so the op declares no mutation.
-    The lse is empty unless asked for."""
-    global launches
+    The lse is empty unless asked for.  Counted in ``launches`` when it
+    runs, in ``captured`` when a CUDA graph captures it."""
+    global launches, captured
     b, hq, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     chunk, max_group = _constants()
@@ -132,8 +147,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, hq, hkv, t, d, cuda_lib.strides_arg(q, k, v, out), d ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(err, "decode_attention")
-    launches += 1
-    mode_launches["lse"] += return_lse
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
+        mode_launches["lse"] += return_lse
     return out, lse
 
 

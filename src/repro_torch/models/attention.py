@@ -54,7 +54,7 @@ over this process's block of the image keys (split over 'model' where
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -223,7 +223,8 @@ def _gather_heads(t: torch.Tensor, sp: Optional[Split]) -> torch.Tensor:
     return t if sp is None else col.all_gather(t, 2, sp.mesh, sp.axes)
 
 
-def _decode_over_block(q: torch.Tensor, cache: Params, pos: int,
+def _decode_over_block(q: torch.Tensor, cache: Params,
+                       pos: Union[int, torch.Tensor],
                        kv: Optional[Split]) -> torch.Tensor:
     """The decode kernel over the cache block this process holds, whose
     first position is ``kv``'s block start (0 without a split), at
@@ -254,13 +255,25 @@ def _heads_out(out: torch.Tensor, p: Params, heads: Optional[Split]
 
 
 def attn_decode(x: torch.Tensor, p: Params, cfg: ArchConfig, cache: Params,
-                pos: int) -> Tuple[torch.Tensor, Params]:
+                pos: Union[int, torch.Tensor]) -> Tuple[torch.Tensor, Params]:
     """One-token decode.  x: (B,1,D); cache k/v: (B,T,Hkv,Dh) views of the
     period's slice of the stacked cache (in the serving context this
-    process's block of it); ``pos`` = tokens already in the cache.  The
-    new token is written at ``pos`` and attends over [0..pos]."""
+    process's block of it); ``pos`` = tokens already in the cache, a host
+    int or a 0-dim int32 tensor on x's device (read by RoPE, the cache
+    write and the kernel on the device, so that the step can be captured
+    in a CUDA graph; the same values as the int's, bit for bit).  The new
+    token is written at ``pos`` and attends over [0..pos].  A tensor
+    ``pos`` with the cache split over positions (``kv_seq``) raises
+    ``ValueError``."""
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    on_device = isinstance(pos, torch.Tensor)
+    ctx = current()
+    kv = None if ctx is None else ctx.shard_split("kv_seq")
+    if on_device and kv is not None:
+        raise ValueError("a device pos needs the whole cache on this "
+                         "process; kv_seq splits it")
+    positions = (pos.expand(b, 1) if on_device else
+                 torch.full((b, 1), pos, dtype=torch.int32, device=x.device))
     heads = model_split(cfg.n_heads)
     q = _gather_heads(apply_rope(_project_q(x, p, cfg), positions,
                                  cfg.rope_theta), heads)
@@ -271,12 +284,14 @@ def attn_decode(x: torch.Tensor, p: Params, cfg: ArchConfig, cache: Params,
     k_new = _every_kv_head(apply_rope(k_new, positions, cfg.rope_theta), cfg,
                            heads, None)
     v_new = _every_kv_head(v_new, cfg, heads, None)
-    ctx = current()
-    kv = None if ctx is None else ctx.shard_split("kv_seq")
     start = kv.index * cache["k"].shape[1] if kv else 0
     # in place, where the reference returns a new cache from
     # dynamic_update_slice: the write lands in the stacked cache itself
-    if 0 <= pos - start < cache["k"].shape[1]:
+    if on_device:
+        at = pos.view(1).long()
+        cache["k"].index_copy_(1, at, k_new)
+        cache["v"].index_copy_(1, at, v_new)
+    elif 0 <= pos - start < cache["k"].shape[1]:
         cache["k"][:, pos - start] = k_new[:, 0]
         cache["v"][:, pos - start] = v_new[:, 0]
     out = _decode_over_block(q[:, 0], cache, pos, kv)

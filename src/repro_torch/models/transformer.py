@@ -24,7 +24,8 @@ back over its period's slice.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -154,7 +155,8 @@ def period_params(slots: Params, i: int) -> Params:
 # ==========================================================================
 def _apply_block(slot_idx: int, h: torch.Tensor, slot_p: Params,
                  cfg: ArchConfig, mode: str, cache: Optional[Cache],
-                 pos: Optional[int], img_h: Optional[torch.Tensor],
+                 pos: Union[int, torch.Tensor, None],
+                 img_h: Optional[torch.Tensor],
                  layer: int = -1
                  ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Pre-norm residual block (the mixer, then the MLP or MoE if any), in
@@ -371,11 +373,15 @@ def stack_periods(per_period: list) -> Cache:
                    for name in first[slot]} for slot in first}
 
 
-def decode_step(params: Params, cache: Cache, tokens: torch.Tensor, pos: int,
-                cfg: ArchConfig, gather: Optional[Callable] = None
+def decode_step(params: Params, cache: Cache, tokens: torch.Tensor,
+                pos: Union[int, torch.Tensor], cfg: ArchConfig,
+                gather: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One-token decode.  tokens: (B,1) integer; pos: number of tokens
-    already in the KV cache (host int).  Updates ``cache`` in place:
+    already in the KV cache, a host int or a 0-dim int32 tensor on the
+    weights' device, which self-attention reads on the device (no host
+    value in the step: it can be captured in a CUDA graph; see
+    ``attention.attn_decode``).  Updates ``cache`` in place:
     attention writes into it, cross-attention's image K/V stay as they
     are, and a recurrent slot's new state (a new tensor) is copied over
     its period's slice.  ``gather``: as in ``prefill``; the cache is then
