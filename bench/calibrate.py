@@ -38,7 +38,7 @@ def calibrate(workload: str, seeds, seconds: float, device="cuda",
     for seed in seeds:
         t0 = time.perf_counter()
         w = harness.draw_weights(cfg, seed, device)
-        params = harness.port_params(w)
+        params = harness.port_params(cfg, w)
         harness.new_engine(model, params).run(harness.warm_requests(
             cfg, mix, seed, cfg["vocab_size"]))
         rec = harness.Recorder()

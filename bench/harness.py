@@ -31,7 +31,6 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import gc
-import importlib.util
 import json
 import math
 import subprocess
@@ -43,10 +42,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+import bench
 from bench import reference, traffic, yardstick
 
 ROOT = Path(__file__).resolve().parent
 REPO = ROOT.parent
+ARCH = ROOT / "arch"
 FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "repro", "benchmarks"})
 now = time.perf_counter
 
@@ -86,86 +87,39 @@ def cell_metrics(bm: Dict, workload: str, trace: bool) -> List[Dict]:
 
 def reader(name: str):
     """``read(window)`` of ``metrics/<name>.py``."""
-    path = ROOT / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return bench.load(ROOT / "metrics" / f"{name}.py").read
+
+
+def arch(cfg: Dict):
+    """The module of the configuration's architecture, ``arch/<arch>.py``
+    (``dense`` where its file names none): its ``ArchConfig``, weights,
+    their layout in the program, and the counts the readers divide by
+    (``step_flops``, ``periods``, ``attention_layers``,
+    ``attention_per_period``, ``head_dim``)."""
+    return bench.load(ARCH / f"{cfg.get('arch', 'dense')}.py")
 
 
 # --------------------------------------------------------------------------
 # weights and the program
 # --------------------------------------------------------------------------
 def draw_weights(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Every weight, drawn on ``device`` from ``seed`` in the serving
-    dtype, one call per stacked leaf: N(0, 1/fan_in) for the products and
-    the embedding, N(0, 0.1^2) for QKV biases, 1 + N(0, 0.1^2) for RMSNorm
-    scales.  Layer leaves are stacked on a leading layer axis."""
+    """Every weight of the configuration, drawn on ``device`` from
+    ``seed`` by its architecture's module, under the benchmark's own
+    names."""
     gen = torch.Generator(device=device)
     gen.manual_seed(traffic.seed_words(seed))
-    dtype = getattr(torch, cfg["serve_dtype"])
-    n, d, f = cfg["num_hidden_layers"], cfg["hidden_size"], cfg["intermediate_size"]
-    hq, hkv, v = (cfg["num_attention_heads"], cfg["num_key_value_heads"],
-                  cfg["vocab_size"])
-    dh = d // hq
-
-    def normal(shape, std, mean=0.0):
-        t = torch.randn(shape, generator=gen, device=device, dtype=dtype)
-        t.mul_(std)
-        return t.add_(mean) if mean else t
-
-    w = {"embed": normal((v, d), d ** -0.5),
-         "wq": normal((n, d, hq, dh), d ** -0.5),
-         "wk": normal((n, d, hkv, dh), d ** -0.5),
-         "wv": normal((n, d, hkv, dh), d ** -0.5),
-         "wo": normal((n, hq, dh, d), (hq * dh) ** -0.5),
-         "w_in": normal((n, d, f), d ** -0.5),
-         "w_gate": normal((n, d, f), d ** -0.5),
-         "w_out": normal((n, f, d), f ** -0.5)}
-    if cfg["attention_bias"]:
-        for name, h in (("bq", hq), ("bk", hkv), ("bv", hkv)):
-            w[name] = normal((n, h, dh), 0.1)
-    if cfg["norm"] == "rmsnorm":
-        w["norm1"] = normal((n, d), 0.1, 1.0)
-        w["norm2"] = normal((n, d), 0.1, 1.0)
-        w["final_norm"] = normal((d,), 0.1, 1.0)
-    if not cfg["tie_word_embeddings"]:
-        w["lm_head"] = normal((d, v), d ** -0.5)
-    return w
+    return arch(cfg).draw_weights(cfg, gen, device)
 
 
-def port_params(w: Dict[str, torch.Tensor]) -> Dict:
-    """The same tensors in the program's parameter layout: one slot of
-    (attention, MLP), its leaves stacked over the layers."""
-    def norm(name):
-        return {"scale": w[name]} if name in w else {}
-    slot = {"norm1": norm("norm1"),
-            "mixer": {k: w[k] for k in ("wq", "wk", "wv", "wo", "bq", "bk",
-                                        "bv") if k in w},
-            "norm2": norm("norm2"),
-            "ffn": {k: w[k] for k in ("w_in", "w_gate", "w_out")}}
-    params = {"embed": {"table": w["embed"]}, "slots": {"slot0": slot},
-              "final_norm": norm("final_norm")}
-    if "lm_head" in w:
-        params["lm_head"] = {"w": w["lm_head"]}
-    return params
+def port_params(cfg: Dict, w: Dict[str, torch.Tensor]) -> Dict:
+    """The same tensors in the program's parameter layout."""
+    return arch(cfg).port_params(w)
 
 
 def build_model(cfg: Dict):
     """The program's model for the configuration as the file states it."""
-    from repro_torch.configs import ArchConfig
     from repro_torch.models.registry import build
-    if cfg["hidden_act"] != "silu":
-        raise ValueError(f"{cfg['name']}: only SwiGLU MLPs are served")
-    return build(ArchConfig(
-        name=cfg["name"], family="dense", n_layers=cfg["num_hidden_layers"],
-        d_model=cfg["hidden_size"], n_heads=cfg["num_attention_heads"],
-        n_kv_heads=cfg["num_key_value_heads"], d_ff=cfg["intermediate_size"],
-        vocab_size=cfg["vocab_size"], block_pattern=(("attn", "mlp"),),
-        norm=cfg["norm"], qkv_bias=cfg["attention_bias"], mlp_act="silu",
-        rope_theta=cfg["rope_theta"], tie_embeddings=cfg["tie_word_embeddings"],
-        dtype=cfg["serve_dtype"]))
+    return build(arch(cfg).arch_config(cfg))
 
 
 def new_engine(model, params):
@@ -557,7 +511,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     t_entry = now()
     model = build_model(cfg)
     w = draw_weights(cfg, seed, dev)
-    params = port_params(w)
+    params = port_params(cfg, w)
     sync()
     t_weights = now()
     # the warm round: every shape of the mix once, the kernels built

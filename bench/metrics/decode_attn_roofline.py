@@ -3,7 +3,7 @@ launch's bound (bytes-bound: K and V of the context, the query and the
 output) over the kernels' device time in the trace, in %.  One launch per
 attention layer and decode step; where the trace does not hold that many
 decode kernels, nothing is read."""
-from bench import yardstick
+from bench import harness, yardstick
 
 
 def read(w):
@@ -11,9 +11,9 @@ def read(w):
         return None
     sec, launches = w.trace.kernels("decode_split_kernel")
     cfg = w.cfg
+    mod = harness.arch(cfg)
     hq, hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    dh = cfg["hidden_size"] // hq
-    layers = cfg["num_hidden_layers"]
+    dh, layers = mod.head_dim(cfg), mod.attention_layers(cfg)
     ctx = [(s.size, w.reqs[s.rid].batch) for s in w.trace.traced(w.steps)
            if s.kind == "decode"]
     if not launches or launches != layers * len(ctx):

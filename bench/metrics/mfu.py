@@ -1,16 +1,14 @@
-"""Model FLOPs of every prefill and decode step of the window (frozen
-formulas of yardstick.py from the configuration's sizes) over the
-window's wall times 989 TFLOP/s, in %."""
-from bench import yardstick
+"""Model FLOPs of every prefill and decode step of the window (the
+configuration's architecture module counts one step, by the frozen
+formulas of yardstick.py, from its sizes) over the window's wall times
+989 TFLOP/s, in %."""
+from bench import harness, yardstick
 
 
 def read(w):
-    layers = w.cfg["num_hidden_layers"]
+    step_flops = harness.arch(w.cfg).step_flops
     flops = 0
     for s in w.steps:
-        if s.kind == "prefill":
-            flops += (w.reqs[s.rid].batch
-                      * yardstick.prefill_model_flops(w.cfg, s.size) / layers)
-        elif s.kind == "decode":
-            flops += w.reqs[s.rid].batch * yardstick.decode_model_flops(w.cfg, s.size)
+        if s.kind in ("prefill", "decode"):
+            flops += w.reqs[s.rid].batch * step_flops(w.cfg, s.kind, s.size)
     return flops / (w.wall_s * yardstick.PEAK_BF16_FLOPS) * 100

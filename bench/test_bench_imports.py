@@ -39,6 +39,33 @@ def test_jax_side_by_whole_names():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for name in ("reference.py", "yardstick.py"):
-        assert not imported(BENCH / name) - {"__future__", "contextlib",
-                                             "math", "typing", "numpy", "torch"}
+    assert not imported(BENCH / "yardstick.py") - {
+        "__future__", "contextlib", "math", "typing", "numpy", "torch"}
+    # the benchmark's own package for its loader of ref/ files
+    assert not imported(BENCH / "reference.py") - {
+        "__future__", "contextlib", "pathlib", "typing", "torch", "bench"}
+    assert imported_from(BENCH / "reference.py", "bench") == {"bench"}
+
+
+def imported_from(path: Path, top: str) -> set:
+    """The modules of package ``top`` that ``path`` imports."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names if a.name.split(".")[0] == top}
+        elif (isinstance(node, ast.ImportFrom) and node.level == 0
+              and node.module.split(".")[0] == top):
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", sorted((BENCH / "ref").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_each_reference_imports_nothing_of_the_program(path):
+    """A plain reference imports torch, the standard library's math and
+    typing, and ``bench.reference``'s helpers: nothing of the program,
+    of the harness or of the architecture modules."""
+    assert not imported(path) - {"__future__", "math", "typing", "torch",
+                                 "bench"}
+    assert imported_from(path, "bench") <= {"bench.reference"}
+    assert "repro_torch" not in path.read_text()

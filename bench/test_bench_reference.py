@@ -1,34 +1,65 @@
-"""The plain reference against the program's model on the CPU, at tiny
-sizes of both configurations, in float32: prefill's last logits and five
-decode steps' logits through the program's executor must equal the
-reference's full forward over the same tokens."""
+"""The plain reference against the program's model on the CPU, at the tiny
+size each configuration's architecture module gives (``tiny(cfg)``), in
+float32: prefill's last logits and five decode steps' logits through the
+program's executor must equal the reference's full forward over the same
+tokens.  And the weights and the reference's logits, now drawn and
+computed through the architecture modules, bit for bit as the harness
+drew and computed them before it dispatched by architecture."""
+import hashlib
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from bench import harness, reference
 
-TINY = dict(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
-            num_attention_heads=4, num_key_value_heads=4, vocab_size=256,
-            serve_dtype="float32")
+BM = harness.load_benchmark()
+
+# sha256 of every weight tensor (names, shapes, dtypes and bytes, by name)
+# and of the reference's logits and its fp8 control's at every row of 24
+# seeded tokens, for the tiny copies; taken from the harness before the
+# architecture modules (dense only, its forward in reference.py)
+FROZEN = {
+    ("olmo-1b", 5): (
+        "8315cee879f34dba8003b23c84e9249f83b19f717ba2848a96de757eda0503af",
+        "5ed174d77790ecfa7280d7061e3ab441c4a6697ceff292372ceabec4e05ad38a"),
+    ("olmo-1b", 2**40 + 7): (
+        "1229da76f259063fe6128fd823259ffa22881e70d9d6de12d653af2de8e2778a",
+        "867a244f1a56c7d79976c59b3c1f4aac06d0b608564091610512d6513f72504a"),
+    ("qwen1.5-4b", 5): (
+        "8993746001a7a04cfb8e074d2b664026e68975f99fc5abe1427c6129ca150553",
+        "ff681f2f57e443a8c03e95520ff683333039d9cfeb35f37e51bf3a9010cd3f54"),
+    ("qwen1.5-4b", 2**40 + 7): (
+        "f71824a0be60458654d623ecc13bb9dfd5a1480558f1f774136ae246b3902cea",
+        "8e65ddac9652c45cb92dc4b95de75c17a0ce62cdf46b869e524a2ce71c8ac776"),
+}
 
 
 def tiny(name):
-    bm = harness.load_benchmark()
-    conf = next(c for c in bm["configs"] if c["name"] == name)
-    spec = harness.resolve(bm, next(w["name"] for w in bm["workloads"]
-                                    if w["config"] == name))
-    assert spec["cfg"]["source"] == conf["source"]
-    return dict(spec["cfg"], **TINY)
+    conf = next(c for c in BM["configs"] if c["name"] == name)
+    cfg = json.loads((harness.REPO / conf["file"]).read_text())
+    assert cfg["source"] == conf["source"]
+    return dict(cfg, **harness.arch(cfg).tiny(cfg))
 
 
-@pytest.mark.parametrize("name", ["olmo-1b", "qwen1.5-4b"])
+def digest(tensors):
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        t = tensors[k].detach().contiguous().cpu()
+        h.update(f"{k}{tuple(t.shape)}{t.dtype}".encode())
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in BM["configs"]])
 def test_reference_equals_program(name):
     from repro_torch.serving import PreemptibleExecutor
     cfg = tiny(name)
+    vocab = cfg["vocab_size"]
     w = harness.draw_weights(cfg, 2**40 + 7, "cpu")
-    ex = PreemptibleExecutor(harness.build_model(cfg), harness.port_params(w))
-    prompt = np.random.default_rng(3).integers(0, 256, (1, 12)).astype(np.int32)
+    ex = PreemptibleExecutor(harness.build_model(cfg), harness.port_params(cfg, w))
+    prompt = np.random.default_rng(3).integers(0, vocab, (1, 12)).astype(np.int32)
     st = ex.start({"tokens": prompt})
     while st.phase == "prefill":
         st = ex.step_prefill(st)
@@ -43,6 +74,21 @@ def test_reference_equals_program(name):
     # greedy tokens sit at gap 0 wherever the reference's top two differ
     gap = reference.gaps(ref, torch.as_tensor(served))
     assert float(gap.max()) < 1e-4
+
+
+@pytest.mark.parametrize("name,seed", sorted(FROZEN), ids=str)
+def test_weights_and_reference_as_before(name, seed):
+    cfg = tiny(name)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        w = harness.draw_weights(cfg, seed, "cpu")
+        seq = torch.as_tensor(np.random.default_rng(3).integers(0, 256, 24))
+        logits = {"ref": reference.logits_at(cfg, w, seq, range(24)),
+                  "fp8": reference.logits_at(cfg, w, seq, range(24), fp8=True)}
+    finally:
+        torch.set_num_threads(threads)
+    assert (digest(w), digest(logits)) == FROZEN[name, seed]
 
 
 def test_rope_theta_and_bias_matter():

@@ -74,8 +74,8 @@ def setup():
     # each of its rounds
     spec["cell"] = dict(spec["cell"], mean_gap_s=iso / spec["mix"]["load"],
                         cycle_rounds=CYCLE, seeded_start=True)
-    params = harness.port_params(harness.draw_weights(cfg, 2**33 + 5,
-                                                      torch.device("cpu")))
+    params = harness.port_params(cfg, harness.draw_weights(
+        cfg, 2**33 + 5, torch.device("cpu")))
     threads = torch.get_num_threads()
     torch.set_num_threads(1)         # tiny products; the host clock is read
     yield spec, harness.build_model(cfg), params

@@ -3,6 +3,10 @@ hardware model the engine schedules by, and the operation and byte counts
 of the kernels and of the model.  Nothing here reads the program: a change
 to the program's own formulas or to its ``hw.py`` moves none of these.
 
+The model counts below are a dense decoder's (every layer attention and
+a SwiGLU MLP); ``arch/dense.py`` divides them into executor steps, and
+another architecture's module counts its own steps beside them.
+
 Counts are of the work the inputs need (each input byte read once, each
 output byte written once; a causal product only over the pairs the mask
 keeps), so a kernel's share of its bound can reach 100 % and no more.
